@@ -1,0 +1,21 @@
+"""mygpuraytracer_tpu_torch — the path tracer and denoiser in PyTorch and CUDA.
+
+The port of ``mygpuraytracer_tpu`` (JAX) to PyTorch on an NVIDIA H100. Its
+layout mirrors the JAX package, so each module's counterpart has the same
+path:
+
+- ``scene``   : scene.txt parser, OBJ ingestion, builtin scenes, device scene
+- ``ops``     : threefry RNG (bit-exact with ``jax.random``), SoA vec3 math,
+                primitive and small-mesh intersection
+- ``render``  : camera rays, shading, the wavefront sample, the K1 CUDA
+                kernel that runs whole iterations, the Renderer
+- ``denoise`` : TZA weights, transfer functions, the U-Net as an nn.Module
+- ``apps``    : the ``raytrace`` command line
+- ``csrc``    : hand-written CUDA C++ for sm_90a, built by ``_build.py``
+
+It imports torch and numpy, never jax nor the JAX package. Entry points take
+a ``device`` argument that defaults to ``"cuda"``; the CPU runs only when a
+caller asks for it.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,123 @@
+"""Headless render CLI (the oidnRayTracer app, apps/src/main.cpp).
+
+Usage:
+    python -m mygpuraytracer_tpu_torch.apps.raytrace SCENE [options]
+
+SCENE is a scene .txt file or a builtin name (cornell, cornellGlass,
+sphere). Renders on CUDA unless ``--device cpu`` is given, and writes the
+four outputs of saveImage (main.cpp:115-165):
+    <name>.<timestamp>.<N>samp.png    accumulated beauty / N
+    <name>.<timestamp>.<N>albedo.png  first-hit albedo AOV
+    <name>.<timestamp>.<N>input.png   denoiser input (normalized beauty)
+    <name>.<timestamp>.<N>output.png  denoised beauty
+with the reference's horizontal mirror (img.setPixel(width-1-x, ...)).
+
+The denoiser runs on the device through the fused path
+(render/denoise_fused.py: RT filter, LDR, color + albedo, ``rt_ldr_alb``),
+which computes what the JAX app's Filter-API call computes for this case.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="path tracer (PyTorch + CUDA)")
+    p.add_argument("scene", help="scene .txt file or builtin name (cornell, sphere, ...)")
+    p.add_argument("--iterations", type=int, default=None, help="override scene ITERATIONS")
+    p.add_argument("--depth", type=int, default=None, help="override trace depth")
+    p.add_argument("--resolution", type=int, nargs=2, default=None, metavar=("W", "H"))
+    p.add_argument("--out-dir", default=".", help="output directory")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--batch", type=int, default=16, help="iterations per kernel launch")
+    p.add_argument("--no-denoise", action="store_true", help="disable the AI denoiser")
+    p.add_argument("--megakernel", choices=("auto", "on", "off"), default="auto",
+                   help="whole-iteration K1 CUDA kernel for supported scenes "
+                        "(auto: on for CUDA)")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--quiet", action="store_true")
+    return p.parse_args(argv)
+
+
+def load_any_scene(name: str):
+    from ..scene import load_scene
+    from ..scene.builtin import BUILTIN_SCENES
+
+    if os.path.exists(name):
+        return load_scene(name)
+    if name in BUILTIN_SCENES:
+        return BUILTIN_SCENES[name]()
+    raise FileNotFoundError(f"scene '{name}' not found (file or builtin)")
+
+
+def mirror_x(img: np.ndarray) -> np.ndarray:
+    """saveImage writes pixel (width-1-x, y) (main.cpp:126)."""
+    return np.ascontiguousarray(img[:, ::-1])
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    import torch
+
+    from ..config import RenderOptions
+    from ..render import Renderer
+    from ..render.denoise_fused import denoise_accumulator, load_denoiser
+    from ..utils.png import write_png
+
+    device = torch.device(args.device)
+    scene = load_any_scene(args.scene)
+    if args.resolution:
+        scene.set_resolution(*args.resolution)
+    if args.depth:
+        scene.state.trace_depth = args.depth
+    iterations = args.iterations if args.iterations is not None else scene.state.iterations
+    mega = device.type == "cuda" if args.megakernel == "auto" else args.megakernel == "on"
+    options = RenderOptions(ai_denoise=not args.no_denoise, megakernel=mega)
+    log = (lambda *a: None) if args.quiet else print
+
+    log(f"Loaded scene: {scene.state.image_name} "
+        f"{scene.state.camera.resolution[0]}x{scene.state.camera.resolution[1]}, "
+        f"{len(scene.geoms)} geoms, {len(scene.materials)} materials")
+    r = Renderer(scene, options, seed=args.seed, device=device)
+    start_str = time.strftime("%Y-%m-%d_%H-%M-%S")
+    os.makedirs(args.out_dir, exist_ok=True)
+
+    t0 = time.perf_counter()
+    done = 0
+    while done < iterations:
+        n = min(args.batch, iterations - done)
+        r.step_many(n)
+        done += n
+        if not args.quiet:
+            print(f"\rIteration {done}/{iterations}", end="", flush=True)
+    beauty = r.beauty()  # copies to the host: waits for the device
+    render_s = time.perf_counter() - t0
+    log(f"\ntime: {render_s:.3f}s ({done / render_s:.1f} iters/s, "
+        f"{np.prod(beauty.shape[:2]) * done / render_s / 1e6:.1f} Msamples/s)"
+        f" on {device}{' (K1)' if r.use_megakernel else ''}")
+
+    albedo = r.albedo_image()
+    prefix = os.path.join(args.out_dir, f"{scene.state.image_name}.{start_str}.{done}")
+    write_png(f"{prefix}samp.png", mirror_x(beauty))
+    write_png(f"{prefix}albedo.png", mirror_x(albedo))
+    write_png(f"{prefix}input.png", mirror_x(beauty))
+    if options.ai_denoise:
+        t0 = time.perf_counter()
+        net, random_weights = load_denoiser("rt_ldr_alb", device)
+        output = denoise_accumulator(r.acc[0:3], r.acc[3:6], r.iteration, net,
+                                     r.meta.resolution).cpu().numpy()
+        log(f"Denoise: {(time.perf_counter() - t0) * 1e3:.1f}ms"
+            + (" [RANDOM WEIGHTS]" if random_weights else ""))
+        write_png(f"{prefix}output.png", mirror_x(output))
+    log(f"Saved outputs: {prefix}*.png")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

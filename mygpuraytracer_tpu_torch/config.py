@@ -1,0 +1,63 @@
+"""Runtime render configuration.
+
+The same option names and defaults as ``mygpuraytracer_tpu/config.py`` (one
+options object can drive both packages in a test). Options whose meaning was
+specific to the TPU keep their names; this slice of the port reads only
+``antialiasing``, ``depth_of_field``, ``lens_radius``, ``focal_distance``,
+``cache_first_bounce``, ``ai_denoise``, ``dir_aov`` and ``megakernel``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderOptions:
+    """Feature flags for one render pipeline instance.
+
+    Defaults match the reference build (pathtrace.cu:36-42):
+    DEPTH_OF_FIELD 0, CACHE_FIRST_BOUNCE 1, SORT_BY_MATERIAL 1,
+    ANTIALIASING 1, BOUNDING_BOX 0, AI_DENOISE 1, JITTERED_SAMPLING 0.
+    """
+
+    depth_of_field: bool = False
+    # First-bounce cache. With AA and DoF off primary rays are deterministic,
+    # so recomputing the first hit gives the cached record exactly; the port
+    # recomputes it (see render/pathtrace.py).
+    cache_first_bounce: bool = True
+    # Material-sorted execution. The image is bitwise identical either way
+    # (RNG streams follow the pixel id), so the port does not sort.
+    sort_by_material: bool = False
+    antialiasing: bool = True
+    # Per-ray mesh-AABB pre-test; image-identical either way.
+    bounding_box: bool = False
+    ai_denoise: bool = True
+    # SH-L1 directional lightmap AOV (not ported yet: raises).
+    dir_aov: bool = False
+    jittered_sampling: bool = False
+
+    # Thin-lens parameters (pathtrace.cu:279-280).
+    lens_radius: float = 0.8
+    focal_distance: float = 11.0
+
+    # Options of the JAX package's TPU tiers, kept by name so that one
+    # options object drives both packages. Unused by this slice.
+    face_chunk: int = 64
+    dtype: str = "float32"
+    rng: str = "threefry"
+    # Run whole iterations in the K1 CUDA kernel (render/megakernel.py) for
+    # scenes it supports; others take the wavefront path.
+    megakernel: bool = False
+    bounce_megakernel: bool = False
+    mesh_pallas: bool | None = None
+    mesh_sort: bool | str | None = None
+    winner_table: str = "auto"
+    mesh_tier: str = "rows"
+    sort_impl: str = "fused"
+
+    @property
+    def first_bounce_cache_active(self) -> bool:
+        """First-bounce cache is compiled out when AA or DoF perturbs primary
+        rays (pathtrace.cu:586,608)."""
+        return self.cache_first_bounce and not self.antialiasing and not self.depth_of_field

@@ -1,0 +1,91 @@
+"""Counter-based RNG: threefry2x32, bit-exact with ``jax.random``.
+
+Reproduces ``jax.random.key``, ``fold_in`` and ``uniform`` (float32) as JAX
+0.9 computes them with ``jax_threefry_partitionable`` on:
+
+- a key is the word pair ``(seed >> 32, seed & 0xFFFFFFFF)``;
+- ``fold_in(key, data)`` is ``threefry2x32(key, (0, data))``;
+- the bits of element ``i`` of a shape (row-major flat index) are
+  ``y0 ^ y1`` of ``threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))``;
+- a uniform is ``bitcast((bits >> 9) | 0x3F800000) - 1``.
+
+The path tracer draws one ``[4 + 3*depth, N]`` block per iteration under
+``fold_in(key(seed), iteration)`` (render/pathtrace.py), so the wavefront
+and the K1 CUDA kernel (which runs the same hash per draw) see the same
+numbers as the JAX package's wavefront.
+
+Words are carried in int64 tensors (or Python ints) masked to 32 bits, since
+torch has no full set of uint32 ops; :func:`threefry2x32` takes either.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+Key = tuple[int, int]
+
+
+def _rotl(x, r: int):
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds on 32-bit words held in int64 tensors or
+    Python ints (all values in [0, 2**32)). Returns (y0, y1)."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & MASK32
+    x1 = (x1 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK32
+    return x0, x1
+
+
+def make_key(seed: int) -> Key:
+    """``jax.random.key(seed)`` for a seed that fits int32 (JAX's default
+    32-bit mode): the high word is 0 and the low word is the seed's bits."""
+    seed = int(seed)
+    if not -(2**31) <= seed < 2**31:
+        raise ValueError(f"seed {seed} does not fit int32")
+    return (0, seed & MASK32)
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)``."""
+    y0, y1 = threefry2x32(key[0], key[1], 0, int(data) & MASK32)
+    return (int(y0), int(y1))
+
+
+def random_bits(key: Key, numel: int, device="cpu", offset: int = 0) -> torch.Tensor:
+    """32-bit random words (int64 tensor) of flat elements
+    ``offset .. offset + numel - 1`` of a draw under ``key``."""
+    idx = torch.arange(offset, offset + numel, dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK32)
+    return y0 ^ y1
+
+
+def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """JAX's float32 uniform in [0, 1) from 32-bit words."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def uniform(key: Key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype=float32)``."""
+    shape = tuple(shape)
+    numel = 1
+    for s in shape:
+        numel *= s
+    return bits_to_uniform(random_bits(key, numel, device)).reshape(shape)
+
+
+def iteration_key(base_key: Key, iteration: int) -> Key:
+    """Key for one camera sample (MC iteration)."""
+    return fold_in(base_key, iteration)

@@ -1,0 +1,96 @@
+"""One Monte-Carlo camera sample: the wavefront pipeline in plain PyTorch.
+
+Counterpart of ``mygpuraytracer_tpu/render/pathtrace.py::render_sample`` without
+the material sort and the first-bounce cache (neither changes the image: the
+sort is a permutation undone at the end, and the cache stores a first hit
+that is recomputed here from the same deterministic primary rays):
+
+    one RNG block -> raygen -> bounce 0 (+ AOVs) -> bounces 1..depth-1
+    -> finalGather (color * pi)
+
+The RNG block is ``jax.random.uniform(fold_in(key(seed), iteration),
+(4 + 3*depth, N))``, reproduced bit for bit by ``ops/rng.py``: rows 0-1 are
+the AA jitter, rows 2-3 the DoF lens sample, rows 4+3b .. 6+3b bounce b.
+
+This is the plain version that the K1 CUDA kernel (render/megakernel.py) is
+held against.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..config import RenderOptions
+from ..ops import rng
+from ..ops.trace import intersect_soa
+from ..ops.vec3 import Vec3
+from ..scene.device_scene import DeviceScene, SceneMeta
+from .camera import generate_camera_rays
+from .shade import PathStateSoA, albedo_soa, shade_soa
+
+PI = math.pi  # finalGather multiplies by pi (pathtrace.cu:508)
+
+
+class SampleOutput(NamedTuple):
+    color: Vec3  # [N] this sample's contribution (already * pi)
+    albedo: Vec3  # [N] first-hit albedo; zero except at iteration 1
+    normal: Vec3  # [N] first-hit shading normal; zero except at iteration 1
+
+
+def num_rng_streams(trace_depth: int) -> int:
+    return 4 + 3 * trace_depth
+
+
+def render_sample(
+    dev: DeviceScene,
+    meta: SceneMeta,
+    options: RenderOptions,
+    iteration: int,  # 1-based like the reference
+    base_key: rng.Key,
+) -> SampleOutput:
+    if options.dir_aov:
+        raise NotImplementedError("dir_aov is not ported yet")
+    width, height = meta.resolution
+    n = width * height
+    depth = meta.trace_depth
+    device = dev.camera.position.device
+
+    ikey = rng.iteration_key(base_key, iteration)
+    U = rng.uniform(ikey, (num_rng_streams(depth), n), device)
+
+    o, d = generate_camera_rays(dev.camera, meta.resolution, options, U)
+    ones = torch.ones(n, dtype=torch.float32, device=device)
+    state = PathStateSoA(
+        origin=o, direction=d, color=Vec3(ones, ones, ones),
+        remaining=torch.full((n,), depth, dtype=torch.int32, device=device),
+    )
+
+    hit0 = intersect_soa(meta, dev, o, d, options.face_chunk)
+    zero = torch.zeros(n, dtype=torch.float32, device=device)
+    if iteration == 1:
+        albedo = albedo_soa(hit0)
+        normal = Vec3(*(torch.where(hit0.hit, c, zero) for c in hit0.normal))
+    else:
+        albedo = normal = Vec3(zero, zero, zero)
+    state = shade_soa(state, hit0, U[4], U[5], U[6])
+
+    for b in range(1, depth):
+        if not bool((state.remaining > 0).any()):
+            break  # no live path: later bounces change nothing
+        h = intersect_soa(meta, dev, state.origin, state.direction, options.face_chunk)
+        state = shade_soa(state, h, U[4 + 3 * b], U[5 + 3 * b], U[6 + 3 * b])
+
+    color = Vec3(state.color.x * PI, state.color.y * PI, state.color.z * PI)
+    return SampleOutput(color=color, albedo=albedo, normal=normal)
+
+
+def accumulate_sample(acc: torch.Tensor, out: SampleOutput, iteration: int) -> None:
+    """Add one sample into the [9, N] accumulator in place: rows 0-2 sum the
+    color, rows 3-5 and 6-8 take the albedo and normal AOVs at iteration 1."""
+    acc[0:3] += torch.stack(out.color)
+    if iteration == 1:
+        acc[3:6] = torch.stack(out.albedo)
+        acc[6:9] = torch.stack(out.normal)

@@ -1,0 +1,91 @@
+"""The PyTorch port stands alone: no JAX, no JAX package, CUDA by default.
+
+The machine with the GPU has no JAX, so the port and chip_smoke.py must
+import with ``jax`` (and the JAX package) blocked.
+"""
+
+import inspect
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "mygpuraytracer_tpu_torch"
+SOURCES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+    for p in PORT.rglob("*.py")
+)
+
+_BLOCK_JAX = (
+    "import sys\n"
+    "sys.modules['jax'] = None\n"
+    "sys.modules['jaxlib'] = None\n"
+    "sys.modules['mygpuraytracer_tpu'] = None\n"
+)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("target", ["port", "chip_smoke"])
+def test_imports_with_jax_blocked(target):
+    if target == "port":
+        body = "".join(f"import {m}\n" for m in MODULES)
+    else:
+        body = "import chip_smoke\n"
+    code = _BLOCK_JAX + body + "assert 'jax' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_source_names_no_jax(path):
+    text = (REPO / path).read_text()
+    assert not re.search(r"^\s*(import|from)\s+jax", text, re.M), f"{path} imports jax"
+    assert not re.search(r"mygpuraytracer_tpu\.(?!_torch)|import mygpuraytracer_tpu\b(?!_torch)",
+                         text), f"{path} names the JAX package as a module"
+
+
+def _default(fn, name):
+    return inspect.signature(fn).parameters[name].default
+
+
+def test_entry_points_default_to_cuda():
+    from mygpuraytracer_tpu_torch.apps import raytrace
+    from mygpuraytracer_tpu_torch.render import Renderer
+    from mygpuraytracer_tpu_torch.render.denoise_fused import load_denoiser
+    from mygpuraytracer_tpu_torch.scene.device_scene import build_device_scene, camera_params
+
+    assert _default(Renderer.__init__, "device") == "cuda"
+    assert _default(build_device_scene, "device") == "cuda"
+    assert _default(camera_params, "device") == "cuda"
+    assert _default(load_denoiser, "device") == "cuda"
+    assert raytrace.parse_args(["cornell"]).device == "cuda"
+    assert raytrace.parse_args(["cornell"]).megakernel == "auto"
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Without a card the smoke check exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal path is not reachable")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory holding only chip_smoke.py the check cannot run."""
+    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120, env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
