@@ -2,21 +2,33 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (mygpuraytracer_tpu_torch) on the card: the
-builtin Cornell box at 800x800, depth 8, rendered through the K1 CUDA kernel
-and denoised with the U-Net. Phases, each printing one line with its elapsed
-seconds:
+Drives the port's two main paths (mygpuraytracer_tpu_torch) on the card at
+800x800, depth 8: the builtin Cornell box through the K1 CUDA kernel, and
+the 23,328-face spaceship in the Cornell box, textured and bump-mapped
+(scenes/cornellShipTex.txt) and plain (scenes/cornellShip.txt), through the
+wavefront and the mesh tiers' CUDA kernel (K2/K3/K4); both denoised with
+the U-Net. Phases, each printing one line with its elapsed seconds:
 
-1. device   -- the card's name and power limit (nvidia-smi); fails without CUDA
-2. build    -- one nvcc call over csrc/*.cu into the gitignored build dir
-3. k1_parity-- K1 against its plain PyTorch version on cornell and
-               cornellGlass (800x800, depth 8, 16 iterations, same seed)
-4. render   -- the main path: Renderer.render_denoised with K1, launch
-               counts read around it; then K1 timed with CUDA events
-5. denoise  -- the fused denoise (bf16 net) against the float32 net on the
-               card, and the float32 net on the card against the CPU
-6. app      -- `python -m mygpuraytracer_tpu_torch.apps.raytrace` in a
-               subprocess, writing its four PNGs into a temporary directory
+1. device      -- the card's name and power limit (nvidia-smi); fails without CUDA
+2. build       -- one nvcc per csrc/*.cu, in parallel, into the gitignored build dir
+3. k1_parity   -- K1 against its plain PyTorch version on cornell and
+                  cornellGlass (800x800, depth 8, 16 iterations, same seed)
+4. render      -- K1's main path: Renderer.render_denoised, launch counts
+                  read around it; then K1 timed with CUDA events
+5. mesh_parity -- the mesh kernel against its plain version on the bounce-0
+                  and bounce-1 queries of cornellShip and cornellShipTex,
+                  under each tier name and winner table
+6. mesh_render -- the mesh main path: render_denoised of cornellShipTex and
+                  cornellShip with the kernel's launches counted, the lists
+                  and conds tiers likewise, kernel against plain-tier images;
+                  then the kernel timed with CUDA events (mesh_time) and two
+                  iterations under torch.profiler (mesh_profile): device busy
+                  share and the kernels that take the device time
+7. denoise     -- the fused denoise (bf16 net) against the float32 net on the
+                  card, and the float32 net on the card against the CPU
+8. app         -- `python -m mygpuraytracer_tpu_torch.apps.raytrace` in a
+                  subprocess on cornell and on cornellShipTex, each writing
+                  its four PNGs into a temporary directory
 
 It prints a JSON line of per-kernel numbers and, last, one JSON object
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -25,7 +37,9 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -40,14 +54,16 @@ import mygpuraytracer_tpu_torch as port
 from mygpuraytracer_tpu_torch import _build
 from mygpuraytracer_tpu_torch.config import RenderOptions
 from mygpuraytracer_tpu_torch.denoise.unet import no_tf32
-from mygpuraytracer_tpu_torch.ops import rng
+from mygpuraytracer_tpu_torch.ops import mesh_hit as mh
+from mygpuraytracer_tpu_torch.ops import rng, trace
 from mygpuraytracer_tpu_torch.ops.trace import intersect_soa
 from mygpuraytracer_tpu_torch.ops.vec3 import Vec3
 from mygpuraytracer_tpu_torch.render import Renderer, megakernel
 from mygpuraytracer_tpu_torch.render.camera import generate_camera_rays
 from mygpuraytracer_tpu_torch.render.denoise_fused import denoise_accumulator, load_denoiser
-from mygpuraytracer_tpu_torch.render.pathtrace import num_rng_streams
+from mygpuraytracer_tpu_torch.render.pathtrace import num_rng_streams, render_sample
 from mygpuraytracer_tpu_torch.render.shade import PathStateSoA, shade_soa
+from mygpuraytracer_tpu_torch.scene import load_scene
 from mygpuraytracer_tpu_torch.scene.builtin import cornell_box, cornell_glass
 from mygpuraytracer_tpu_torch.scene.device_scene import build_device_scene
 from mygpuraytracer_tpu_torch.scene.structs import GeomType
@@ -97,8 +113,22 @@ FP_OPS_BOX = 140
 FP_OPS_SPHERE = 120
 FP_OPS_FACE = 40
 FP_OPS_SHADE = 120  # diffuse bounce: cosine hemisphere (2 sqrt, sin, cos, 2 normalized crosses)
+# The mesh kernel, counted from csrc/mesh_hit.cu: a face test is A and B (2
+# dot products, 10), B's clamp (3), t (2), u and v (2 x (2 dots + 3) = 26)
+# and the accept test (6 compares or adds + 4 ands) = 51. The bound counts
+# face tests only; a cluster's slab test (6 subtracts, 6 multiplies, 10
+# min/max, 3 compares and an and = 26) is this design's own schedule, and
+# its cost for the live rays is printed beside the bound, not in it.
+FP_OPS_FACE_TEST = 51
+FP_OPS_SLAB = 26
+MESH_SCENES = ("cornellShipTex", "cornellShip")
+MESH_ITERS = 16  # the main path: one render_denoised of 16 iterations
+MESH_TIER_ITERS = 2  # the lists and conds tiers' own main-path runs
+MESH_IMAGE_ITERS = 4  # kernel against plain tier, image of 4 iterations
+PROFILE_ITERS = 2  # iterations under torch.profiler
 
 T0 = time.perf_counter()
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def phase(name: str, **fields) -> None:
@@ -138,7 +168,7 @@ def ray_bounces(dev, meta, options, iterations) -> int:
                 break
             total += alive
             h = intersect_soa(meta, dev, s.origin, s.direction)
-            s = shade_soa(s, h, U[4 + 3 * b], U[5 + 3 * b], U[6 + 3 * b])
+            s = shade_soa(meta, dev, s, h, U[4 + 3 * b], U[5 + 3 * b], U[6 + 3 * b])
     return total
 
 
@@ -154,6 +184,130 @@ def k1_ops(meta, options, samples: int, bounces: int) -> tuple[float, float]:
     fp += bounces * (hit + FP_OPS_SHADE + 3 * FP_OPS_PER_DRAW)
     integer = INT_OPS_PER_DRAW * (samples * draws_per_sample + 3 * bounces)
     return float(fp), float(integer)
+
+
+@contextlib.contextmanager
+def patched(module, name: str, fn):
+    """Replace ``module.name`` by ``fn`` inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield orig
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def counting(module, name: str):
+    """Count the calls of ``module.name`` inside the block (a one-item list)."""
+    count = [0]
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        count[0] += 1
+        return orig(*args, **kwargs)
+
+    with patched(module, name, wrapper):
+        yield count
+
+
+@contextlib.contextmanager
+def recording_mesh_queries(keep: int = 2):
+    """Keep the inputs of the first ``keep`` mesh-kernel queries the
+    wavefront makes: iteration 1's bounce 0 (camera rays) and bounce 1."""
+    calls = []
+    orig = trace.mesh_hit
+
+    def record(fp, bounds, rays, with_visits=False):
+        if len(calls) < keep:
+            calls.append((fp, bounds, rays.clone()))
+        return orig(fp, bounds, rays, with_visits)
+
+    with patched(trace, "mesh_hit", record):
+        yield calls
+
+
+def refuse(*args, **kwargs):
+    raise AssertionError("the chunked Moller-Trumbore stream ran on the mesh main path")
+
+
+def mesh_scene(name: str):
+    scene = load_scene(os.path.join(HERE, "scenes", f"{name}.txt"))
+    scene.set_resolution(RES, RES)
+    scene.state.trace_depth = DEPTH
+    return scene
+
+
+def app_options(**changes) -> RenderOptions:
+    """The options the app builds on CUDA with its default flags."""
+    return dataclasses.replace(RenderOptions(megakernel=True, mesh_tier="rows", mesh_sort=None,
+                                             winner_table="auto"), **changes)
+
+
+def compare_mesh_outputs(out_k, out_p, visits_k, visits_p) -> dict:
+    """Kernel outputs against the plain version's, per lane."""
+    hit_k, hit_p = out_k[4] >= 0, out_p[4] >= 0
+    both = hit_k & hit_p
+    rel = ((out_k[0] - out_p[0]).abs() / out_p[0].abs())[both]
+    return {
+        "hit_miss_share": float((hit_k != hit_p).float().mean()),
+        "t_max_rel": float(rel.max()) if rel.numel() else 0.0,
+        "gid_share": float((out_k[4] != out_p[4]).float().mean()),
+        "fid_share": float((out_k[7] != out_p[7]).float().mean()),
+        "uv_share": float(((out_k[5] != out_p[5]) | (out_k[6] != out_p[6])).float().mean()),
+        "bitwise": bool(torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))),
+        "visits_equal": bool(torch.equal(visits_k, visits_p)),
+    }
+
+
+def mesh_bound(fp, bounds, rays, visits) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, FP32 ops, bytes) of one mesh query: the
+    face tests of the clusters its rays visit (sum of visits x 128 x
+    FP_OPS_FACE_TEST), against each input read once and the [8, N] output
+    written once."""
+    ops = float(visits.sum()) * 128 * FP_OPS_FACE_TEST
+    nbytes = 4 * (rays.numel() + fp.numel() + bounds.numel() + mh.OUT_ROWS * rays.shape[1])
+    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def block_visits(meta, rays, tile: int = 128, rows_per_chunk: int = 512) -> int:
+    """(128-ray block, cluster) pairs in which some ray of the block can
+    reach the cluster before its t_cap (``ops/trace.py::_cluster_visit_lists``,
+    the TPU rows tier's schedule): an upper bound on the blocks' visits in
+    the kernel, which prunes with each ray's running best."""
+    pad = (-rays.shape[1]) % tile
+    fill = torch.tensor([1e7, 1e7, 1e7, 1.0, 0.0, 0.0, 0.0], device=rays.device)[:, None]
+    padded = torch.cat([rays, fill.expand(7, pad)], dim=1)
+    total = 0
+    for s in range(0, padded.shape[1], tile * rows_per_chunk):
+        r = padded[:, s:s + tile * rows_per_chunk]
+        _, counts = trace._cluster_visit_lists(meta, Vec3(r[0], r[1], r[2]), Vec3(r[3], r[4], r[5]),
+                                               r[6], tile)
+        total += int(counts.sum())
+    return total
+
+
+def time_mesh_query(meta, fp, bounds, rays, **labels) -> dict:
+    """The kernel and its plain version timed with CUDA events on one
+    recorded query, with its bound; prints one mesh_time line."""
+    run = lambda: mh.mesh_hit(fp, bounds, rays)
+    run()  # warm-up
+    ms = float(np.median([cuda_ms(run) for _ in range(5)]))
+    mh.mesh_hit_reference(fp, bounds, rays)
+    plain_ms = cuda_ms(lambda: mh.mesh_hit_reference(fp, bounds, rays))
+    _, visits = mh.mesh_hit(fp, bounds, rays, with_visits=True)
+    bound_ms, bound_by, ops, nbytes = mesh_bound(fp, bounds, rays, visits)
+    live = int((rays[6] > 0).sum())
+    blocks = block_visits(meta, rays)
+    phase("mesh_time", **labels, ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.1f}",
+          bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, of_bound=f"{bound_ms / ms:.3f}",
+          visits=int(visits.sum()), visits_per_live_ray=f"{float(visits.sum()) / max(live, 1):.2f}",
+          block_visits_at_most=blocks,
+          lane_use_at_least=f"{float(visits.sum()) / max(blocks * 128, 1):.3f}",
+          fp32_ops=f"{ops:.3e}", bytes=int(nbytes),
+          slab_ops_live=f"{live * bounds.shape[1] * FP_OPS_SLAB:.3e}", library_ms="none")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def compare_images(a: np.ndarray, b: np.ndarray) -> dict:
@@ -180,7 +334,10 @@ def main() -> int:
     # ---- build ---------------------------------------------------------------
     _build.library()
     phase("build", nvcc_s=f"{_build.build_seconds:.1f}" if _build.build_seconds else "cached",
-          so=_build.library_path())
+          so=",".join(os.path.basename(p) for p in _build.build()))
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("    ptxas:", line.strip(), flush=True)
 
     # ---- k1_parity -------------------------------------------------------------
     options = RenderOptions(megakernel=True)
@@ -222,13 +379,13 @@ def main() -> int:
     t = time.perf_counter()
     denoised, beauty = renderer.render_denoised(iterations=32, batch=16)
     main_path_s = time.perf_counter() - t
-    launches = megakernel.LAUNCHES
-    if launches < 1:
+    k1_launches = megakernel.LAUNCHES
+    if k1_launches < 1:
         raise AssertionError("the main path launched K1 no time")
     if not (denoised.shape == (RES, RES, 3) and np.isfinite(denoised).all()
             and np.isfinite(beauty).all() and 0.0 <= denoised.min() and denoised.max() <= 1.0):
         raise AssertionError("denoised output is not a finite [0,1] 800x800x3 image")
-    phase("render", main_path_s=f"{main_path_s:.2f}", k1_launches=launches,
+    phase("render", main_path_s=f"{main_path_s:.2f}", k1_launches=k1_launches,
           beauty_mean=f"{beauty.mean():.4f}", denoised_mean=f"{denoised.mean():.4f}")
 
     # K1 timed as step_many(16) calls it, iterations 1..16 into zeroed accumulators.
@@ -256,6 +413,140 @@ def main() -> int:
           bound_by="bytes" if t_bytes > t_ops else "operations",
           launches_per_iter_batch=1)
 
+    # ---- mesh_parity -------------------------------------------------------------
+    mesh_calls, mesh_metas, mesh_max_abs = {}, {}, 0.0
+    for name in MESH_SCENES:
+        r = Renderer(mesh_scene(name), app_options(), seed=SEED, device=device)
+        dev, meta = r.dev, r.meta
+        mesh_metas[name] = meta
+        with recording_mesh_queries() as calls:
+            render_sample(dev, meta, r.options, 1, r.base_key)
+        calls = calls[:2]  # bounce 0: the camera rays; bounce 1: after one shade
+        with_tb = any(g.bump > 0 for g in meta.geoms)
+        tables = ({"f32": dev.face_ex_t, "f16": dev.face_ex_h, "oct": dev.face_ex_o}
+                  if meta.has_textures else {"f32": dev.face_ex_t})
+        for label, (fp, bounds, rays) in zip(("bounce0", "bounce1"), calls):
+            out_k, visits_k = mh.mesh_hit(fp, bounds, rays, with_visits=True)
+            out_p, visits_p = mh.mesh_hit_reference(fp, bounds, rays, with_visits=True)
+            cmp = compare_mesh_outputs(out_k, out_p, visits_k, visits_p)
+            same = (out_k == out_p) | (out_k.isnan() & out_p.isnan())
+            mesh_max_abs = max(mesh_max_abs, float(torch.where(
+                same, 0.0, (out_k - out_p).abs()).nan_to_num(nan=float("inf")).max()))
+            extras = {"rows": [(trace._winner_extras(out_k, tab, meta.has_textures, with_tb),
+                                trace._winner_extras(out_p, tab, meta.has_textures, with_tb))
+                               for tab in tables.values()],
+                      "lists/conds": [(
+                          trace._plane_ex_extras(out_k, dev.face_plane_ex, meta.has_textures, with_tb),
+                          trace._plane_ex_extras(out_p, dev.face_plane_ex, meta.has_textures, with_tb))]}
+            extras_equal = all(torch.equal(a, b) for pairs in extras.values()
+                               for ek, ep in pairs for a, b in zip(ek, ep))
+            live = int((rays[6] > 0).sum())
+            phase("mesh_parity", scene=name, batch=label, rays=rays.shape[1], live=live,
+                  mesh_winners=int((out_k[4] >= 0).sum()), visits=int(visits_k.sum()),
+                  tables="/".join(tables), extras_equal=extras_equal,
+                  **{k: (f"{v:.3e}" if isinstance(v, float) else v) for k, v in cmp.items()})
+            if not (cmp["bitwise"] and cmp["visits_equal"] and extras_equal):
+                raise AssertionError(f"mesh kernel disagrees with its plain version on {name} "
+                                     f"{label}: {cmp}, extras_equal={extras_equal}")
+        mesh_calls[name] = calls
+
+    # ---- mesh_render: the mesh main path, counted ----------------------------------
+    mesh_launches = {}
+    for name in MESH_SCENES:
+        r = Renderer(mesh_scene(name), app_options(), seed=SEED, device=device)
+        if r.use_megakernel or (r.options.mesh_tier, r.options.mesh_sort,
+                                r.options.winner_table) != ("rows", "need", "oct"):
+            raise AssertionError(f"{name}: unexpected route or options {r.options}")
+        with counting(trace, "mesh_rows_hit") as queries, \
+                patched(trace, "mesh_intersect_soa", refuse):
+            mh.LAUNCHES = 0
+            t = time.perf_counter()
+            denoised, beauty = r.render_denoised(iterations=MESH_ITERS, batch=16)
+            wall_s = time.perf_counter() - t
+            m_launches = mh.LAUNCHES
+        if not (m_launches > 0 and m_launches == queries[0]):
+            raise AssertionError(f"{name}: {m_launches} kernel launches for {queries[0]} "
+                                 "mesh queries")
+        if not (denoised.shape == (RES, RES, 3) and np.isfinite(denoised).all()
+                and np.isfinite(beauty).all() and beauty.mean() > 1e-3
+                and 0.0 <= denoised.min() and denoised.max() <= 1.0):
+            raise AssertionError(f"{name}: denoised output is not a finite [0,1] image")
+        r.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r.render(iterations=MESH_ITERS, batch=16)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t
+        if name == "cornellShipTex":
+            mesh_launches["rows"] = m_launches
+        phase("mesh_render", scene=name, tier="rows", main_path_s=f"{wall_s:.2f}",
+              mesh_launches=m_launches, mesh_queries=queries[0],
+              render_s=f"{render_s:.3f}", ms_per_iter=f"{1e3 * render_s / MESH_ITERS:.1f}",
+              msamples_per_s=f"{RES * RES * MESH_ITERS / render_s / 1e6:.2f}",
+              beauty_mean=f"{beauty.mean():.4f}", denoised_mean=f"{denoised.mean():.4f}")
+    tier_calls = {}
+    for tier, fn in (("lists", "mesh_list_hit"), ("conds", "mesh_pallas_hit")):
+        r = Renderer(mesh_scene("cornellShipTex"), app_options(mesh_tier=tier), seed=SEED,
+                     device=device)
+        with counting(trace, fn) as queries, patched(trace, "mesh_intersect_soa", refuse), \
+                recording_mesh_queries() as tier_calls[tier]:
+            mh.LAUNCHES = 0
+            img = r.render(iterations=MESH_TIER_ITERS)
+            mesh_launches[tier] = mh.LAUNCHES
+        if not (mesh_launches[tier] > 0 and mesh_launches[tier] == queries[0]
+                and np.isfinite(img).all()):
+            raise AssertionError(f"tier {tier}: {mesh_launches[tier]} launches for "
+                                 f"{queries[0]} queries")
+        phase("mesh_render", scene="cornellShipTex", tier=tier, iterations=MESH_TIER_ITERS,
+              mesh_launches=mesh_launches[tier], mesh_queries=queries[0])
+    # The same 4 iterations through the kernel and through the plain tier.
+    images = []
+    for query in (mh.mesh_hit, mh.mesh_hit_reference):
+        r = Renderer(mesh_scene("cornellShipTex"), app_options(), seed=SEED, device=device)
+        with patched(trace, "mesh_hit", query):
+            images.append(r.render(iterations=MESH_IMAGE_ITERS, batch=MESH_IMAGE_ITERS))
+    img_cmp = compare_images(*images)
+    phase("mesh_render", check="kernel_vs_plain_tier", iterations=MESH_IMAGE_ITERS,
+          equal=bool(np.array_equal(*images)), **{k: f"{v:.3e}" for k, v in img_cmp.items()})
+    if img_cmp["rmse_agreeing"] >= PARITY_RMSE or img_cmp["share_gt_1e-2"] >= PARITY_PIXEL_SHARE:
+        raise AssertionError(f"kernel and plain-tier images disagree: {img_cmp}")
+
+    # The kernel timed with CUDA events on the main path's own queries: the
+    # rows tier's on both scenes, and each other tier's on its own run's.
+    mesh_times = {}
+    for name in MESH_SCENES:
+        for label, (fp, bounds, rays) in zip(("bounce0", "bounce1"), mesh_calls[name]):
+            mesh_times[name, "rows", label] = time_mesh_query(
+                mesh_metas[name], fp, bounds, rays, scene=name, tier="rows", batch=label)
+    for tier, calls in tier_calls.items():
+        mesh_times["cornellShipTex", tier, "bounce1"] = time_mesh_query(
+            mesh_metas["cornellShipTex"], *calls[1], scene="cornellShipTex", tier=tier,
+            batch="bounce1")
+
+    # ---- mesh_profile: where the mesh main path's device time goes ------------------
+    r = Renderer(mesh_scene("cornellShipTex"), app_options(), seed=SEED, device=device)
+    r.render(iterations=1)  # warm-up
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        r.render(iterations=PROFILE_ITERS, batch=PROFILE_ITERS)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t)
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    mesh_ms = sum(e.self_device_time_total for e in on_card if "mesh_hit" in e.key) / 1e3
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]
+    phase("mesh_profile", scene="cornellShipTex", iterations=PROFILE_ITERS,
+          wall_ms_per_iter=f"{prof_wall_ms / PROFILE_ITERS:.1f}",
+          device_busy_ms_per_iter=f"{busy_ms / PROFILE_ITERS:.1f}",
+          device_busy_share=f"{busy_ms / prof_wall_ms:.3f}",
+          mesh_kernel_ms_per_iter=f"{mesh_ms / PROFILE_ITERS:.2f}",
+          kernels_per_iter=sum(e.count for e in on_card) // PROFILE_ITERS)
+    for e in top:
+        print(f"    device {e.self_device_time_total / 1e3 / PROFILE_ITERS:9.3f} ms/iter "
+              f"x{e.count // PROFILE_ITERS:6d}  {e.key[:90]}", flush=True)
+
     # ---- denoise ----------------------------------------------------------------
     net, random_weights = load_denoiser("rt_ldr_alb", device)
     if random_weights:
@@ -282,28 +573,29 @@ def main() -> int:
         raise AssertionError("denoiser outputs disagree beyond the stated tolerances")
 
     # ---- app ------------------------------------------------------------------------
-    with tempfile.TemporaryDirectory() as out_dir:
-        proc = subprocess.run(
-            [sys.executable, "-m", "mygpuraytracer_tpu_torch.apps.raytrace", "cornell",
-             "--resolution", str(RES), str(RES), "--iterations", "32", "--depth", str(DEPTH),
-             "--out-dir", out_dir],
-            capture_output=True, text=True, timeout=600,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-        pngs = sorted(os.listdir(out_dir))
-        tail = proc.stdout.strip().splitlines()[-3:]
-        phase("app", rc=proc.returncode, pngs=len(pngs), out=repr(" | ".join(tail)))
-        if proc.returncode != 0:
-            raise AssertionError(f"app failed:\n{proc.stdout}\n{proc.stderr}")
-        for suffix in ("samp.png", "albedo.png", "input.png", "output.png"):
-            if sum(p.endswith(suffix) for p in pngs) != 1:
-                raise AssertionError(f"app did not write one *{suffix}: {pngs}")
+    for scene_arg, iters in (("cornell", 32), ("scenes/cornellShipTex.txt", 4)):
+        with tempfile.TemporaryDirectory() as out_dir:
+            proc = subprocess.run(
+                [sys.executable, "-m", "mygpuraytracer_tpu_torch.apps.raytrace", scene_arg,
+                 "--resolution", str(RES), str(RES), "--iterations", str(iters),
+                 "--depth", str(DEPTH), "--out-dir", out_dir],
+                capture_output=True, text=True, timeout=600, cwd=HERE)
+            pngs = sorted(os.listdir(out_dir))
+            tail = proc.stdout.strip().splitlines()[-3:]
+            phase("app", scene=scene_arg, rc=proc.returncode, pngs=len(pngs),
+                  out=repr(" | ".join(tail)))
+            if proc.returncode != 0:
+                raise AssertionError(f"app failed:\n{proc.stdout}\n{proc.stderr}")
+            for suffix in ("samp.png", "albedo.png", "input.png", "output.png"):
+                if sum(p.endswith(suffix) for p in pngs) != 1:
+                    raise AssertionError(f"app did not write one *{suffix}: {pngs}")
 
     kernels = [{
         "name": "k1_megakernel",
         "route": "cuda",
         "source": "mygpuraytracer_tpu_torch/csrc/megakernel.cu",
         "replaces": "mygpuraytracer_tpu/render/megakernel.py:82",
-        "launches": launches,
+        "launches": k1_launches,
         "max_abs_err": parity["cornell"]["max_abs"],
         "ms": k1_ms,
         "plain_ms": parity["cornell"]["plain_ms"],
@@ -311,6 +603,22 @@ def main() -> int:
         "bound_by": "bytes" if t_bytes > t_ops else "operations",
         "library_ms": None,
     }]
+    for tier, kname, line in (("rows", "k2_mesh_rows", 1109), ("lists", "k3_mesh_lists", 967),
+                              ("conds", "k4_mesh_conds", 427)):
+        main_time = mesh_times["cornellShipTex", tier, "bounce1"]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "mygpuraytracer_tpu_torch/csrc/mesh_hit.cu",
+            "replaces": f"mygpuraytracer_tpu/ops/trace.py:{line}",
+            "launches": mesh_launches[tier],
+            "max_abs_err": mesh_max_abs,
+            "ms": main_time["ms"],
+            "plain_ms": main_time["plain_ms"],
+            "bound_ms": main_time["bound_ms"],
+            "bound_by": main_time["bound_by"],
+            "library_ms": None,
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

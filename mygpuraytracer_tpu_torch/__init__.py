@@ -6,9 +6,11 @@ path:
 
 - ``scene``   : scene.txt parser, OBJ ingestion, builtin scenes, device scene
 - ``ops``     : threefry RNG (bit-exact with ``jax.random``), SoA vec3 math,
-                primitive and small-mesh intersection
+                primitive and mesh intersection (the mesh tiers' CUDA
+                kernel), texel fetches
 - ``render``  : camera rays, shading, the wavefront sample, the K1 CUDA
                 kernel that runs whole iterations, the Renderer
+- ``utils``   : PNG read and write on zlib alone
 - ``denoise`` : TZA weights, transfer functions, the U-Net as an nn.Module
 - ``apps``    : the ``raytrace`` command line
 - ``csrc``    : hand-written CUDA C++ for sm_90a, built by ``_build.py``

@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-At first use, one ``nvcc`` call compiles every ``csrc/*.cu`` for sm_90a
-into one shared library with a plain C interface, which ``ctypes`` loads.
-The library lands in ``_build/`` beside this file, named by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one loads
-at once. Nothing here includes PyTorch's headers: the build takes seconds.
+At first use, one ``nvcc`` per ``csrc/*.cu`` source, all started together,
+compiles each for sm_90a into a shared library with a plain C interface,
+which ``ctypes`` loads. A library lands in ``_build/`` beside this file,
+named by its source and a hash of the source, the shared headers and the
+flags, so a changed source rebuilds and an unchanged one loads at once.
+Nothing here includes PyTorch's headers: a build takes seconds.
 
 Run ``python -m mygpuraytracer_tpu_torch._build`` to build and print the
-library's path.
+libraries' paths.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
@@ -26,6 +28,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+# ptxas prints each kernel's registers, shared memory and spills (build_log).
+REPORT_FLAGS = ["-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,16 +39,21 @@ _F = ctypes.c_float
 SIGNATURES = {
     # csrc/megakernel.cu
     "k1_accumulate": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I, _F, _F, _P]),
+    # csrc/mesh_hit.cu
+    "mesh_hit": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 _lib = None
-build_seconds: float | None = None  # wall time of this process's nvcc run
+build_seconds: float | None = None  # wall time of this process's nvcc runs
+build_log = ""  # nvcc's messages (ptxas resource usage) from this process's builds
 
 
 def _sources() -> list[str]:
-    return sorted(
-        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))
-    )
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+
+def _headers() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh"))
 
 
 def find_nvcc() -> str:
@@ -57,46 +66,67 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> str:
+def library_path(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+    for path in [source, *_headers()]:
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"libmygpurt_kernels_{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the sources if this version is not built yet; return the path."""
-    global build_seconds
-    out = library_path()
-    if os.path.isfile(out):
-        return out
+def build() -> list[str]:
+    """Compile every source whose library is not built yet, one nvcc each,
+    in parallel; return the libraries' paths."""
+    global build_seconds, build_log
+    outs = [library_path(s) for s in _sources()]
+    todo = [(s, o) for s, o in zip(_sources(), outs) if not os.path.isfile(o)]
+    if not todo:
+        return outs
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    jobs = []
+    for src, out in todo:
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, *REPORT_FLAGS, "-o", tmp, src]
+        jobs.append((cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, tmp, out, proc in jobs:
+        stdout, stderr = proc.communicate()
+        build_log += stdout + stderr
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     build_seconds = time.perf_counter() - t0
-    os.replace(tmp, out)
-    return out
+    return outs
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+def library() -> types.SimpleNamespace:
+    """Every exported kernel entry point (``SIGNATURES``) as an attribute,
+    from the libraries built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, (restype, argtypes) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype = restype
-            fn.argtypes = argtypes
-        _lib = lib
+        fns = {}
+        for path in build():
+            lib = ctypes.CDLL(path)
+            for name, (restype, argtypes) in SIGNATURES.items():
+                fn = getattr(lib, name, None)
+                if fn is not None:
+                    fn.restype, fn.argtypes = restype, argtypes
+                    fns[name] = fn
+        missing = set(SIGNATURES) - set(fns)
+        if missing:
+            raise RuntimeError(f"kernel libraries lack {sorted(missing)}")
+        _lib = types.SimpleNamespace(**fns)
     return _lib
 
 
 if __name__ == "__main__":
     library()
-    print(build(), f"nvcc {build_seconds:.1f} s" if build_seconds else "(cached)")
+    print(*build(), f"nvcc {build_seconds:.1f} s" if build_seconds else "(cached)", build_log,
+          sep="\n")

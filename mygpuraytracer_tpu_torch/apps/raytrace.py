@@ -11,6 +11,10 @@ four outputs of saveImage (main.cpp:115-165):
     <name>.<timestamp>.<N>input.png   denoiser input (normalized beauty)
     <name>.<timestamp>.<N>output.png  denoised beauty
 with the reference's horizontal mirror (img.setPixel(width-1-x, ...)).
+Primitive scenes and meshes of at most 256 faces render through the K1
+kernel on CUDA; larger meshes, textured and bump-mapped ones included
+(e.g. scenes/cornellShipTex.txt), through the wavefront and the mesh tiers'
+kernel (``--mesh-tier``, ``--mesh-sort``, ``--winner-table``).
 
 The denoiser runs on the device through the fused path
 (render/denoise_fused.py: RT filter, LDR, color + albedo, ``rt_ldr_alb``),
@@ -40,6 +44,17 @@ def parse_args(argv=None):
     p.add_argument("--megakernel", choices=("auto", "on", "off"), default="auto",
                    help="whole-iteration K1 CUDA kernel for supported scenes "
                         "(auto: on for CUDA)")
+    p.add_argument("--mesh-tier", choices=("lists", "rows", "rows_dma", "conds"),
+                   default="rows",
+                   help="mesh tier for meshes of more than 256 faces: the names of the "
+                        "JAX package's tiers, all served by one CUDA kernel here")
+    p.add_argument("--mesh-sort", choices=("auto", "off", "need", "coherence"),
+                   default="auto",
+                   help="reorder of the mesh query's rays (auto: 'need' on CUDA for a "
+                        "mesh embedded in a room)")
+    p.add_argument("--winner-table", choices=("auto", "f32", "f16", "oct"), default="auto",
+                   help="the rows tier's winner uv/TBN table (auto: oct on CUDA, f32 on "
+                        "the CPU)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--quiet", action="store_true")
     return p.parse_args(argv)
@@ -78,7 +93,10 @@ def main(argv=None) -> int:
         scene.state.trace_depth = args.depth
     iterations = args.iterations if args.iterations is not None else scene.state.iterations
     mega = device.type == "cuda" if args.megakernel == "auto" else args.megakernel == "on"
-    options = RenderOptions(ai_denoise=not args.no_denoise, megakernel=mega)
+    options = RenderOptions(
+        ai_denoise=not args.no_denoise, megakernel=mega, mesh_tier=args.mesh_tier,
+        mesh_sort={"auto": None, "off": False}.get(args.mesh_sort, args.mesh_sort),
+        winner_table=args.winner_table)
     log = (lambda *a: None) if args.quiet else print
 
     log(f"Loaded scene: {scene.state.image_name} "

@@ -2,9 +2,9 @@
 
 The same option names and defaults as ``mygpuraytracer_tpu/config.py`` (one
 options object can drive both packages in a test). Options whose meaning was
-specific to the TPU keep their names; this slice of the port reads only
-``antialiasing``, ``depth_of_field``, ``lens_radius``, ``focal_distance``,
-``cache_first_bounce``, ``ai_denoise``, ``dir_aov`` and ``megakernel``.
+specific to the TPU keep their names. The port does not read ``dtype``,
+``rng`` (always threefry), ``bounce_megakernel``, ``sort_by_material`` and
+``sort_impl`` yet.
 """
 
 from __future__ import annotations
@@ -41,18 +41,33 @@ class RenderOptions:
     lens_radius: float = 0.8
     focal_distance: float = 11.0
 
-    # Options of the JAX package's TPU tiers, kept by name so that one
-    # options object drives both packages. Unused by this slice.
+    # Faces per chunk of the Moller-Trumbore mesh stream (the result does
+    # not depend on it).
     face_chunk: int = 64
+    # Options of the JAX package's TPU paths, kept by name so that one
+    # options object drives both packages; not read by the port yet.
     dtype: str = "float32"
     rng: str = "threefry"
     # Run whole iterations in the K1 CUDA kernel (render/megakernel.py) for
     # scenes it supports; others take the wavefront path.
     megakernel: bool = False
     bounce_megakernel: bool = False
+    # Mesh tiers for meshes of more than 256 faces (ops/trace.py): one
+    # nearest-face query over 128-face clusters, which runs the mesh CUDA
+    # kernel on CUDA tensors and its plain version on CPU tensors. None:
+    # on for CUDA, off (chunked Moller-Trumbore) on the CPU.
     mesh_pallas: bool | None = None
+    # Stable reorder of the rays before the tier query, scattered back (the
+    # same result): "need"/True partitions by "can reach a mesh AABB",
+    # "coherence" by origin cell and direction bin, False keeps pixel order;
+    # None: the Renderer picks "need" on CUDA for a mesh embedded in a room.
     mesh_sort: bool | str | None = None
+    # The rows tier's winner uv/TBN table: "f32" exact, "f16" half pairs,
+    # "oct" half pairs + 8-bit octahedral TBN; "auto": oct on CUDA, f32 on
+    # the CPU (the Renderer resolves it).
     winner_table: str = "auto"
+    # "rows" (K2), "rows_dma" (the same here), "lists" (K3), "conds" (K4):
+    # the TPU's three schedules of the one query; the same image.
     mesh_tier: str = "rows"
     sort_impl: str = "fused"
 

@@ -1,4 +1,4 @@
-"""One Monte-Carlo camera sample: the wavefront pipeline in plain PyTorch.
+"""One Monte-Carlo camera sample: the wavefront pipeline.
 
 Counterpart of ``mygpuraytracer_tpu/render/pathtrace.py::render_sample`` without
 the material sort and the first-bounce cache (neither changes the image: the
@@ -12,8 +12,11 @@ The RNG block is ``jax.random.uniform(fold_in(key(seed), iteration),
 (4 + 3*depth, N))``, reproduced bit for bit by ``ops/rng.py``: rows 0-1 are
 the AA jitter, rows 2-3 the DoF lens sample, rows 4+3b .. 6+3b bounce b.
 
-This is the plain version that the K1 CUDA kernel (render/megakernel.py) is
-held against.
+Every bounce queries the scene through ``ops/trace.py::intersect_soa`` with
+the options' mesh settings: on CUDA tensors a mesh of more than 256 faces
+goes through the mesh tiers' CUDA kernel (ops/mesh_hit.py), everything else
+is PyTorch. For primitive scenes and small meshes this is the plain version
+that the K1 CUDA kernel (render/megakernel.py) is held against.
 """
 
 from __future__ import annotations
@@ -68,20 +71,26 @@ def render_sample(
         remaining=torch.full((n,), depth, dtype=torch.int32, device=device),
     )
 
-    hit0 = intersect_soa(meta, dev, o, d, options.face_chunk)
+    query = lambda o, d, active=None: intersect_soa(
+        meta, dev, o, d, options.face_chunk, bounding_box=options.bounding_box,
+        mesh_pallas=options.mesh_pallas, mesh_sort=options.mesh_sort,
+        mesh_tier=options.mesh_tier, winner_table=options.winner_table, active=active)
+    hit0 = query(o, d)
     zero = torch.zeros(n, dtype=torch.float32, device=device)
     if iteration == 1:
-        albedo = albedo_soa(hit0)
+        albedo = albedo_soa(meta, dev, hit0)
         normal = Vec3(*(torch.where(hit0.hit, c, zero) for c in hit0.normal))
     else:
         albedo = normal = Vec3(zero, zero, zero)
-    state = shade_soa(state, hit0, U[4], U[5], U[6])
+    state = shade_soa(meta, dev, state, hit0, U[4], U[5], U[6])
 
     for b in range(1, depth):
-        if not bool((state.remaining > 0).any()):
+        active = state.remaining > 0
+        if not bool(active.any()):
             break  # no live path: later bounces change nothing
-        h = intersect_soa(meta, dev, state.origin, state.direction, options.face_chunk)
-        state = shade_soa(state, h, U[4 + 3 * b], U[5 + 3 * b], U[6 + 3 * b])
+        # Dead lanes keep a stale ray; ``active`` keeps it out of the mesh query.
+        h = query(state.origin, state.direction, active)
+        state = shade_soa(meta, dev, state, h, U[4 + 3 * b], U[5 + 3 * b], U[6 + 3 * b])
 
     color = Vec3(state.color.x * PI, state.color.y * PI, state.color.z * PI)
     return SampleOutput(color=color, albedo=albedo, normal=normal)

@@ -10,11 +10,21 @@ color * pi over iterations, rows 3-5 hold the first-hit albedo and rows 6-8
 the first-hit normal, both taken at iteration 1. ``step_many`` runs a batch
 of iterations through the K1 CUDA kernel in one launch when
 ``options.megakernel`` is set and the scene is one K1 supports
-(render/megakernel.py); otherwise it runs the plain wavefront sample by
-sample (render/pathtrace.py).
+(render/megakernel.py); otherwise it runs the wavefront sample by sample
+(render/pathtrace.py), where a mesh of more than 256 faces, textured or
+not, goes through the mesh tiers: their CUDA kernel on a CUDA device, its
+plain version on the CPU (ops/mesh_hit.py).
+
+As in the JAX package, the auto options are resolved once, at
+construction, from the device: on CUDA the mesh tiers are on,
+``mesh_sort="need"`` is chosen for a mesh embedded in a primitive room, and
+the rows tier's winner table is ``"oct"``; on the CPU the chunked
+Moller-Trumbore stream runs and the table is ``"f32"``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -22,9 +32,68 @@ import torch
 from ..config import RenderOptions
 from ..ops import rng
 from ..scene.device_scene import build_device_scene
-from ..scene.structs import Scene
+from ..scene.structs import GeomType, Scene
 from . import megakernel
 from .pathtrace import accumulate_sample, render_sample
+
+
+def mesh_reach_fraction(scene: Scene, meta, grid: int = 64) -> float:
+    """Host-side estimate of the share of camera rays (a grid x grid set of
+    pixel centers) that can reach an OBJ mesh's AABB: drives the
+    ``mesh_sort`` auto mode."""
+    cam = scene.state.camera
+    w, h = meta.resolution
+    xs = (np.arange(grid, dtype=np.float32) + 0.5) * (w / grid)
+    ys = (np.arange(grid, dtype=np.float32) + 0.5) * (h / grid)
+    x, y = np.meshgrid(xs, ys)
+    sx = np.float32(cam.pixel_length[0]) * (x - w * 0.5)
+    sy = np.float32(cam.pixel_length[1]) * (y - h * 0.5)
+    view = np.asarray(cam.view, np.float32)
+    right = np.asarray(cam.right, np.float32)
+    up = np.asarray(cam.up, np.float32)
+    pos = np.asarray(cam.position, np.float32)
+    d = view[None, None] - right[None, None] * sx[..., None] - up[None, None] * sy[..., None]
+    mask = np.zeros(x.shape, bool)
+    for g in meta.geoms:
+        if g.type != int(GeomType.OBJ) or g.face_count <= 0:
+            continue
+        bmin = np.asarray(g.aabb_min, np.float32)
+        bmax = np.asarray(g.aabb_max, np.float32)
+        da = np.where(np.abs(d) < 1e-20, 1e-20, d)
+        t1 = (bmin[None, None] - pos[None, None]) / da
+        t2 = (bmax[None, None] - pos[None, None]) / da
+        tmin = np.minimum(t1, t2).max(axis=-1)
+        tmax = np.maximum(t1, t2).min(axis=-1)
+        mask |= (tmax >= tmin) & (tmax > 0)
+    return float(mask.mean())
+
+
+def _resolve_auto_options(options: RenderOptions, scene: Scene, meta,
+                          device) -> RenderOptions:
+    """Resolve ``mesh_sort=None`` (auto) once: "need" where the mesh tiers
+    run (on CUDA unless ``mesh_pallas`` says otherwise) on a mesh embedded
+    in a room of primitives (bounce-0 reach < 30% and >= 4 non-OBJ geoms,
+    which keep the rays that miss the mesh alive); False otherwise."""
+    if options.mesh_sort is not None:
+        return options
+    use: bool | str = False
+    pallas = options.mesh_pallas
+    if pallas is None:
+        pallas = torch.device(device).type == "cuda"
+    n_prim = sum(1 for g in meta.geoms if g.type != int(GeomType.OBJ))
+    if (pallas and meta.has_obj and bool(meta.mesh_clusters) and meta.num_faces > 256
+            and n_prim >= 4 and mesh_reach_fraction(scene, meta) < 0.30):
+        use = "need"
+    return dataclasses.replace(options, mesh_sort=use)
+
+
+def _resolve_winner_table(options: RenderOptions, device) -> RenderOptions:
+    """``winner_table="auto"``: "oct" on CUDA (16-byte gather rows), exact
+    "f32" on the CPU."""
+    if options.winner_table != "auto":
+        return options
+    use = "oct" if torch.device(device).type == "cuda" else "f32"
+    return dataclasses.replace(options, winner_table=use)
 
 
 class Renderer:
@@ -36,8 +105,8 @@ class Renderer:
         self.options = options or RenderOptions()
         self.device = torch.device(device)
         self.dev, self.meta = build_device_scene(scene, self.options.face_chunk, self.device)
-        if self.meta.has_textures:
-            raise NotImplementedError("textured scenes are not ported yet")
+        self.options = _resolve_auto_options(self.options, scene, self.meta, self.device)
+        self.options = _resolve_winner_table(self.options, self.device)
         self.base_key = rng.make_key(seed)
         self.use_megakernel = bool(
             self.options.megakernel

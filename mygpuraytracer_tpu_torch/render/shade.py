@@ -2,16 +2,17 @@
 
 Branchless SoA form of shadeFakeMaterial + scatterRay
 (apps/src/pathtrace.cu:397-498, apps/src/interactions.h:112-258), as in
-``mygpuraytracer_tpu/render/shade.py``, for untextured scenes. Every lane
-computes every branch and selects. Branch precedence (pathtrace.cu:463-496,
-interactions.h:125-257):
+``mygpuraytracer_tpu/render/shade.py``. Every lane computes every branch and
+selects; the only gathers are texel fetches, in textured scenes. Branch
+precedence (pathtrace.cu:463-496, interactions.h:125-257):
 
   miss                      -> color = 0, terminate
   emissive material         -> color *= matColor * emittance, terminate
   last bounce (remaining=1) -> color = 0, terminate
   reflective                -> color *= refl * spec^exponent * specColor
   refractive                -> Schlick + TIR, color *= specColor
-  OBJ geom                  -> Fresnel choice of specular vs cosine diffuse
+  OBJ geom                  -> ke-texel emission*5 (terminate) | Fresnel choice
+                               of ks-texel specular vs kd-texel cosine diffuse
   diffuse                   -> cosine hemisphere, color *= matColor
 
 Surface offsets: 0.01 along the normal for mirror bounces, 0.01 along the new
@@ -28,9 +29,10 @@ from typing import NamedTuple
 import torch
 
 from ..ops import vec3 as v3
-from ..ops.trace import HitSoA
+from ..ops.trace import HitSoA, fetch_texel_soa, fetch_texels_packed
 from ..ops.vec3 import Vec3
 
+FLT_EPSILON = 1.1920929e-07
 SQRT_ONE_THIRD = math.sqrt(1.0 / 3.0)
 TWO_PI = 2.0 * math.pi
 
@@ -85,7 +87,24 @@ def _schlick(cos_theta, ior1, ior2):
     return r0 + (1.0 - r0) * torch.pow(1.0 - cos_theta, 5.0)
 
 
-def shade_soa(state: PathStateSoA, hit: HitSoA, u_choice, u1, u2) -> PathStateSoA:
+def _obj_texels(meta, dev, hit: HitSoA):
+    """(kd texel, kd present, ks texel, ks present, ke texel) of the hit's
+    maps, one packed gather where the scene has a packed atlas."""
+    if meta.tex_pack_table:
+        kd, kd_p, ks, ks_p, ke, _, _ = fetch_texels_packed(
+            dev, meta, hit.kd, hit.ks, hit.ke, hit.bump, hit.u, hit.v)
+        return kd, kd_p, ks, ks_p, ke
+    ke, _ = fetch_texel_soa(dev, meta, hit.ke, hit.u, hit.v)
+    kd, kd_p = fetch_texel_soa(dev, meta, hit.kd, hit.u, hit.v)
+    ks, ks_p = fetch_texel_soa(dev, meta, hit.ks, hit.u, hit.v)
+    return kd, kd_p, ks, ks_p, ke
+
+
+def _emits(ke: Vec3) -> torch.Tensor:
+    return (ke.x > FLT_EPSILON) | (ke.y > FLT_EPSILON) | (ke.z > FLT_EPSILON)
+
+
+def shade_soa(meta, dev, state: PathStateSoA, hit: HitSoA, u_choice, u1, u2) -> PathStateSoA:
     """One shading round over the whole wavefront. Lanes with
     remaining == 0 pass through."""
     alive = state.remaining > 0
@@ -125,12 +144,24 @@ def shade_soa(state: PathStateSoA, hit: HitSoA, u_choice, u1, u2) -> PathStateSo
     refr_dir = v3.where(choose_reflect, v3.reflect(d, r_nrm), refract_soa(d, r_nrm, ior1 / ior2))
     refr_origin = p + 0.01 * refr_dir
 
-    # ---- OBJ branch, untextured (interactions.h:168-241) ----------------------
+    # ---- OBJ branch (interactions.h:168-241) ----------------------------------
     diffuse_dir = cosine_hemisphere_soa(nrm, u1, u2)
+    zero = torch.zeros_like(u1)
+    if meta.has_textures:
+        kd_texel, kd_present, ks_texel, ks_present, ke_texel = _obj_texels(meta, dev, hit)
+        obj_emissive = _emits(ke_texel)
+        obj_emit_factor = 5.0 * ke_texel
+        obj_spec_color = v3.where(ks_present, ks_texel, hit.spec_color)
+        obj_diff_color = v3.where(kd_present, kd_texel, hit.color)
+    else:
+        obj_emissive = torch.zeros_like(is_hit)
+        obj_emit_factor = Vec3(zero, zero, zero)
+        obj_spec_color = hit.spec_color
+        obj_diff_color = hit.color
     obj_coeff = _schlick(cos_theta, 1.0, hit.ior)
     obj_specular = u_choice < obj_coeff
     # spec exponent hardcoded 0 in this branch (interactions.h:204) -> *1
-    obj_factor = v3.where(obj_specular, hit.spec_color, hit.color)
+    obj_factor = v3.where(obj_specular, obj_spec_color, obj_diff_color)
     obj_dir = v3.where(obj_specular, refl_dir, diffuse_dir)
     obj_origin = v3.where(obj_specular, p + 0.01 * nrm, p + 0.01 * diffuse_dir)
 
@@ -141,10 +172,13 @@ def shade_soa(state: PathStateSoA, hit: HitSoA, u_choice, u1, u2) -> PathStateSo
     is_mirror = hit.refl > 0
     is_refr = (~is_mirror) & (hit.refr > 0)
     is_obj = (~is_mirror) & (~is_refr) & hit.is_obj & is_hit
+    is_obj_emit = is_obj & obj_emissive
 
     factor = v3.where(
         is_mirror, mirror_factor,
-        v3.where(is_refr, hit.spec_color, v3.where(is_obj, obj_factor, hit.color)),
+        v3.where(is_refr, hit.spec_color,
+                 v3.where(is_obj, v3.where(is_obj_emit, obj_emit_factor, obj_factor),
+                          hit.color)),
     )
     new_dir = v3.where(
         is_mirror, refl_dir, v3.where(is_refr, refr_dir, v3.where(is_obj, obj_dir, diffuse_dir))
@@ -164,14 +198,13 @@ def shade_soa(state: PathStateSoA, hit: HitSoA, u_choice, u1, u2) -> PathStateSo
         state.color.y * hit.color.y * hit.emit,
         state.color.z * hit.color.z * hit.emit,
     )
-    zero = torch.zeros_like(u1)
     zero3 = Vec3(zero, zero, zero)
     new_color = v3.where(
         is_hit,
         v3.where(emissive, emit_color, v3.where(last_bounce, zero3, scatter_color)),
         zero3,
     )
-    terminated = (~is_hit) | emissive | last_bounce
+    terminated = (~is_hit) | emissive | last_bounce | is_obj_emit
     new_remaining = torch.where(terminated, 0, state.remaining - 1)
 
     upd = alive & is_hit & ~emissive & ~last_bounce
@@ -183,13 +216,19 @@ def shade_soa(state: PathStateSoA, hit: HitSoA, u_choice, u1, u2) -> PathStateSo
     )
 
 
-def albedo_soa(hit: HitSoA) -> Vec3:
-    """First-hit albedo for the denoiser (pathtrace.cu:412-459), untextured."""
+def albedo_soa(meta, dev, hit: HitSoA) -> Vec3:
+    """First-hit albedo for the denoiser (pathtrace.cu:412-459)."""
     zero = torch.zeros_like(hit.t)
+    if meta.has_textures:
+        kd_texel, kd_present, _, _, ke_texel = _obj_texels(meta, dev, hit)
+        obj_albedo = v3.where(_emits(ke_texel), 5.0 * ke_texel,
+                              v3.where(kd_present, kd_texel, hit.color))
+    else:
+        obj_albedo = hit.color
     plain = v3.where(
         hit.emit > 0,
         Vec3(hit.color.x * hit.emit, hit.color.y * hit.emit, hit.color.z * hit.emit),
         v3.where(hit.refr > 0, hit.spec_color, hit.color),
     )
-    albedo = v3.where(hit.is_obj, hit.color, plain)
+    albedo = v3.where(hit.is_obj, obj_albedo, plain)
     return v3.where(hit.hit, albedo, Vec3(zero, zero, zero))

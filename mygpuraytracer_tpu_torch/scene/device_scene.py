@@ -1,25 +1,37 @@
 """Static-shape device representation of a scene, as torch tensors.
 
-The subset of ``mygpuraytracer_tpu/scene/device_scene.py`` that primitive
-scenes and small meshes need:
+Counterpart of ``mygpuraytracer_tpu/scene/device_scene.py``:
 
 - geoms     -> tensors [G, ...] (type, material, transforms, AABB, texture
                slot ids) plus host-static ``GeomStatic`` records whose
                transforms and material constants the trace code uses as
                Python floats;
-- faces     -> one world-space triangle buffer [F, ...] (v0/e1/e2/uv/geom),
-               Morton-ordered and padded with degenerate triangles to a
-               ``face_chunk`` multiple;
+- faces     -> one world-space triangle buffer [F, ...] (v0/e1/e2/uv/geom,
+               unit tangent/bitangent), Morton-ordered and padded with
+               degenerate triangles to a ``face_chunk`` multiple;
+- clusters  -> the same faces in plane form, ``face_plane`` [16, Fp], laid
+               out in 128-face Morton clusters whose AABBs are
+               ``cluster_bounds`` [6, C]: what the mesh tiers read
+               (ops/mesh_hit.py), with the uv/TBN extension
+               ``face_plane_ex`` and the rows tier's winner tables
+               (``face_ex_t`` f32, ``face_ex_h`` f16 pairs, ``face_ex_o``
+               f16 pairs + octahedral TBN);
+- textures  -> byte-packed atlases (``tex_atlas_w`` one word per texel,
+               ``tex_atlas16_w`` four words per texel of a geom's
+               kd/ks/ke/bump maps) with static slot tables in ``SceneMeta``;
 - materials -> tensors [M, ...];
 - meshes of at most ``MEGA_FACE_CAP`` faces also as ``SceneMeta.mega_faces``
   (geom, v0, e1, e2, unit normal), which the K1 kernel reads.
 
 Faces are stored in world space (vertices pre-transformed at load), so the
-returned ``t`` is a true world-space distance.
+returned ``t`` is a true world-space distance. The plane form and the TBN
+frame are computed in float64 and cast to float32, as the JAX package does,
+so the arrays equal its bit for bit. The packed-word tables hold uint32 bit
+patterns in int32 tensors (torch's bitwise ops take int32).
 
-Texture atlases, the 128-face cluster buffers of the mesh tiers
-(``face_plane``, ``face_shift``, winner tables) are not built here: the
-texture and mesh-tier slices of the port add them.
+The TPU's sublane-shifted copy of the faces (``face_shift``) is not built:
+it is a layout for the TPU's lane rolls, and the CUDA kernel reads
+``face_plane``.
 """
 
 from __future__ import annotations
@@ -69,6 +81,19 @@ class DeviceScene(NamedTuple):
     face_uv1: torch.Tensor
     face_uv2: torch.Tensor
     face_geom: torch.Tensor  # i32[F] owning geom (pad faces point at geom 0)
+    face_tb: torch.Tensor  # f32[F,6] unit tangent xyz, bitangent xyz (bump TBN)
+    # Plane form, quantity-major: rows fn(3), c=fn.v0, U(3), cu=U.v0, V(3),
+    # cv=V.v0, geom, pad; (U, V) is the dual basis of (e1, e2), so a point x
+    # of the plane has barycentrics u = x.U - cu, v = x.V - cv. Pad faces
+    # have fn = 0 and c = 1e30: their t is inf and never wins.
+    face_plane: torch.Tensor  # f32[16, Fp], Fp = faces padded to CLUSTER_SIZE
+    # Rows 0-5: uv0, uv1-uv0, uv2-uv0 (u and v each); rows 8-13: unit
+    # tangent, bitangent. [16, 1] zeros when the scene is untextured.
+    face_plane_ex: torch.Tensor
+    face_ex_t: torch.Tensor  # f32[Fp, 12] rows 0-5 and 8-13 of face_plane_ex, per face
+    face_ex_h: torch.Tensor  # u32-as-i32 [Fp, 6]: face_ex_t as f16 pairs (low half = even column)
+    face_ex_o: torch.Tensor  # u32-as-i32 [Fp, 4]: 3 f16-pair uv words + tx|ty<<8|bx<<16|by<<24 (oct8)
+    cluster_bounds: torch.Tensor  # f32[6, C]: min xyz, max xyz of each cluster
     mat_color: torch.Tensor  # f32[M,3]
     mat_spec_color: torch.Tensor  # f32[M,3]
     mat_spec_ex: torch.Tensor  # f32[M]
@@ -76,6 +101,8 @@ class DeviceScene(NamedTuple):
     mat_refr: torch.Tensor
     mat_ior: torch.Tensor
     mat_emittance: torch.Tensor
+    tex_atlas_w: torch.Tensor  # u32-as-i32 [P]: r | g<<8 | b<<16 per texel; texel 0 = none
+    tex_atlas16_w: torch.Tensor  # u32-as-i32 [P16, 4]: kd.rgb ks.rgb ke.rgb bump.rgb bytes
     camera: CameraParams
 
 
@@ -128,6 +155,9 @@ class SceneMeta:
     cluster_size: int = CLUSTER_SIZE
     # Per texture slot (offset, width, height, channels); slot 0 = none.
     tex_table: tuple = ()
+    # Per textured geom (kd_id, ks_id, ke_id, bump_id, offset, width, height)
+    # into tex_atlas16_w; empty when a geom's maps differ in resolution.
+    tex_pack_table: tuple = ()
 
 
 def _morton3(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
@@ -179,23 +209,142 @@ def camera_params(cam: Camera, device="cuda") -> CameraParams:
     )
 
 
-def _texture_slots(geoms):
-    """Texture slot ids per geom and the slot table, in the JAX package's
-    slot order (all kd maps, then ks, ke, bump)."""
+def _pack_words(u8: np.ndarray) -> np.ndarray:
+    """Little-endian byte pack of a (n, k<=4) uint8 array into uint32."""
+    w = np.zeros(u8.shape[0], np.uint32)
+    for j in range(u8.shape[1]):
+        w |= u8[:, j].astype(np.uint32) << np.uint32(8 * j)
+    return w
+
+
+def _pack_f16_pairs(f32: np.ndarray) -> np.ndarray:
+    """(n, 2k) float32 -> (n, k) uint32 of f16 pairs, even column low."""
+    h = np.ascontiguousarray(f32.astype(np.float16)).view(np.uint16)
+    return h[:, 0::2].astype(np.uint32) | (h[:, 1::2].astype(np.uint32) << np.uint32(16))
+
+
+def _oct8(vecs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """8-bit octahedral code of (n, 3) unit vectors as two uint32 columns in
+    [0, 255]; zero vectors (degenerate-uv tangents) map to the +z pole."""
+    v = vecs.astype(np.float64)
+    s = np.abs(v).sum(axis=1)
+    s = np.where(s < 1e-20, 1.0, s)
+    px, py = v[:, 0] / s, v[:, 1] / s
+    fx = (1.0 - np.abs(py)) * np.where(px >= 0.0, 1.0, -1.0)
+    fy = (1.0 - np.abs(px)) * np.where(py >= 0.0, 1.0, -1.0)
+    neg = v[:, 2] < 0.0
+    x = np.where(neg, fx, px)
+    y = np.where(neg, fy, py)
+    q = lambda a: np.clip(np.rint((a * 0.5 + 0.5) * 255.0), 0, 255).astype(np.uint32)
+    return q(x), q(y)
+
+
+def _texel_bytes(tex) -> np.ndarray:
+    """A texture's texels as (w*h, 3) uint8 (gray repeated to rgb)."""
+    img = tex.image
+    if img.shape[-1] < 3:
+        img = np.repeat(img[..., :1], 3, axis=-1)
+    u8 = img[..., :3].reshape(-1, 3)
+    if u8.dtype != np.uint8:
+        raise TypeError(f"texture image dtype {u8.dtype} reached atlas packing; "
+                        "textures are uint8 by contract (utils/png.py load_texture)")
+    return u8
+
+
+def _texture_atlases(geoms):
+    """Texture slots per geom, in the JAX package's slot order (all kd maps,
+    then ks, ke, bump), the per-slot word atlas and its table, and the
+    per-geom packed atlas and its table."""
     table = [(0, 0, 0, 0)]
+    words = [np.zeros(1, np.uint32)]
     offset = 1
 
     def add(tex) -> int:
         nonlocal offset
         if not tex.present:
             return 0
+        words.append(_pack_words(_texel_bytes(tex)))
         table.append((offset, tex.width, tex.height, tex.channels))
         offset += tex.width * tex.height
         return len(table) - 1
 
     slots = [np.array([add(getattr(g, m)) for g in geoms], np.int32)
              for m in ("kd", "ks", "ke", "bump")]
-    return slots, tuple(table)
+
+    pack_words, pack_table, pack_off = [np.zeros((1, 4), np.uint32)], [], 1
+    for gi, g in enumerate(geoms):
+        maps = [g.kd, g.ks, g.ke, g.bump]
+        present = [t for t in maps if t.present]
+        if not present:
+            continue
+        if len({(t.width, t.height) for t in present}) != 1:
+            pack_words, pack_table = [np.zeros((1, 4), np.uint32)], []
+            break  # mixed resolutions within one geom: per-map fetches only
+        w_, h_ = present[0].width, present[0].height
+        row_u8 = np.zeros((w_ * h_, 16), np.uint8)
+        for mi, t in enumerate(maps):
+            if t.present:
+                row_u8[:, 3 * mi:3 * mi + 3] = _texel_bytes(t)
+        pack_words.append(np.stack(
+            [_pack_words(row_u8[:, 4 * j:4 * j + 4]) for j in range(4)], axis=1))
+        pack_table.append((*(int(s[gi]) for s in slots), pack_off, w_, h_))
+        pack_off += row_u8.shape[0]
+    return (slots, tuple(table), np.concatenate(words),
+            tuple(pack_table), np.concatenate(pack_words))
+
+
+def _plane_form(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, geom: np.ndarray,
+                fp: int) -> np.ndarray:
+    """face_plane [16, fp] from world triangles (float64 precompute of a
+    well-conditioned dual basis, cast to float32)."""
+    n = len(v0)
+    out = np.zeros((16, fp), np.float32)
+    fv0, fe1, fe2 = (a.astype(np.float64) for a in (v0, e1, e2))
+    fn = np.cross(fe1, fe2)
+    d11 = np.einsum("ij,ij->i", fe1, fe1)
+    d12 = np.einsum("ij,ij->i", fe1, fe2)
+    d22 = np.einsum("ij,ij->i", fe2, fe2)
+    inv = 1.0 / np.maximum(d11 * d22 - d12 * d12, 1e-30)
+    U = (d22[:, None] * fe1 - d12[:, None] * fe2) * inv[:, None]
+    V = (d11[:, None] * fe2 - d12[:, None] * fe1) * inv[:, None]
+    out[0:3, :n] = fn.T
+    out[3, :n] = np.einsum("ij,ij->i", fn, fv0)
+    out[4:7, :n] = U.T
+    out[7, :n] = np.einsum("ij,ij->i", U, fv0)
+    out[8:11, :n] = V.T
+    out[11, :n] = np.einsum("ij,ij->i", V, fv0)
+    out[12, :n] = geom.astype(np.float32)
+    out[3, n:] = 1e30
+    return out
+
+
+def _uv_tbn(e1, e2, uv0, uv1, uv2, fp: int) -> tuple[np.ndarray, np.ndarray]:
+    """(face_tb [n, 6], face_plane_ex [16, fp]): unit tangent/bitangent from
+    world edges and uv deltas (intersections.h:245-279), and the uv
+    interpolation coefficients, in float64 then float32."""
+    n = len(e1)
+    fe1, fe2 = e1.astype(np.float64), e2.astype(np.float64)
+    fuv0 = uv0.astype(np.float64)
+    duv1 = uv1.astype(np.float64) - fuv0
+    duv2 = uv2.astype(np.float64) - fuv0
+    den = duv1[:, 0] * duv2[:, 1] - duv2[:, 0] * duv1[:, 1]
+    f = 1.0 / np.where(np.abs(den) < 1e-20, 1e-20, den)
+    T = f[:, None] * (duv2[:, 1:2] * fe1 - duv1[:, 1:2] * fe2)
+    B = f[:, None] * (-duv2[:, 0:1] * fe1 + duv1[:, 0:1] * fe2)
+
+    def unit(a):
+        nrm = np.linalg.norm(a, axis=1, keepdims=True)
+        return a / np.where(nrm < 1e-20, 1.0, nrm)
+
+    tb = np.zeros((n, 6), np.float32)
+    tb[:, 0:3] = unit(T)
+    tb[:, 3:6] = unit(B)
+    ex = np.zeros((16, fp), np.float32)
+    ex[0:2, :n] = fuv0.T
+    ex[2:4, :n] = duv1.T
+    ex[4:6, :n] = duv2.T
+    ex[8:14, :n] = tb.T
+    return tb, ex
 
 
 def build_device_scene(
@@ -212,7 +361,8 @@ def build_device_scene(
     transform = np.stack([g.transform for g in geoms]).astype(np.float32)
     inverse_transform = np.stack([g.inverse_transform for g in geoms]).astype(np.float32)
     inv_transpose = np.stack([g.inv_transpose for g in geoms]).astype(np.float32)
-    (geom_kd, geom_ks, geom_ke, geom_bump), tex_table = _texture_slots(geoms)
+    ((geom_kd, geom_ks, geom_ke, geom_bump), tex_table, tex_atlas_w,
+     tex_pack_table, tex_atlas16_w) = _texture_atlases(geoms)
     has_textures = bool(
         (geom_kd > 0).any() or (geom_ks > 0).any()
         or (geom_ke > 0).any() or (geom_bump > 0).any()
@@ -274,6 +424,25 @@ def build_device_scene(
             (tuple(float(x) for x in mn), tuple(float(x) for x in mx))
             for mn, mx in zip(cmin, cmax)
         )
+    cluster_bounds = np.array([[c[k][i] for c in mesh_cluster_bounds]
+                               for k in (0, 1) for i in range(3)], np.float32).reshape(6, -1)
+
+    # --- Plane form, uv/TBN extension and the winner tables -----------------
+    Fp = _pad_to(max(num_faces, 1), CLUSTER_SIZE)
+    face_plane = np.zeros((16, Fp), np.float32)
+    face_tb = np.zeros((F, 6), np.float32)
+    face_plane_ex = np.zeros((16, 1), np.float32)
+    if num_faces:
+        sl = slice(0, num_faces)
+        face_plane = _plane_form(face_v0[sl], face_e1[sl], face_e2[sl], face_geom[sl], Fp)
+        if has_textures:
+            face_tb[sl], face_plane_ex = _uv_tbn(
+                face_e1[sl], face_e2[sl], face_uv0[sl], face_uv1[sl], face_uv2[sl], Fp)
+    ex12 = np.ascontiguousarray(face_plane_ex[list(range(6)) + list(range(8, 14))].T)
+    otx, oty = _oct8(ex12[:, 6:9])
+    obx, oby = _oct8(ex12[:, 9:12])
+    oct_word = otx | (oty << np.uint32(8)) | (obx << np.uint32(16)) | (oby << np.uint32(24))
+    face_ex_o = np.concatenate([_pack_f16_pairs(ex12[:, :6]), oct_word[:, None]], axis=1)
 
     # --- Materials ----------------------------------------------------------
     mats = scene.materials
@@ -288,6 +457,7 @@ def build_device_scene(
                              m.has_refractive, m.index_of_refraction, m.emittance)
 
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    words = lambda a: t(np.ascontiguousarray(a, np.uint32).view(np.int32))
     dev = DeviceScene(
         geom_type=t(geom_type), geom_material=t(geom_material),
         transform=t(transform), inverse_transform=t(inverse_transform),
@@ -296,11 +466,15 @@ def build_device_scene(
         geom_bump=t(geom_bump),
         face_v0=t(face_v0), face_e1=t(face_e1), face_e2=t(face_e2),
         face_uv0=t(face_uv0), face_uv1=t(face_uv1), face_uv2=t(face_uv2),
-        face_geom=t(face_geom),
+        face_geom=t(face_geom), face_tb=t(face_tb),
+        face_plane=t(face_plane), face_plane_ex=t(face_plane_ex), face_ex_t=t(ex12),
+        face_ex_h=words(_pack_f16_pairs(ex12)), face_ex_o=words(face_ex_o),
+        cluster_bounds=t(cluster_bounds),
         mat_color=t(mat_color), mat_spec_color=t(mat_spec_color),
         mat_spec_ex=t(mat_scalars[0]), mat_refl=t(mat_scalars[1]),
         mat_refr=t(mat_scalars[2]), mat_ior=t(mat_scalars[3]),
         mat_emittance=t(mat_scalars[4]),
+        tex_atlas_w=words(tex_atlas_w), tex_atlas16_w=words(tex_atlas16_w),
         camera=camera_params(scene.state.camera, device),
     )
 
@@ -360,5 +534,6 @@ def build_device_scene(
         mesh_clusters=mesh_cluster_bounds,
         cluster_size=CLUSTER_SIZE,
         tex_table=tex_table,
+        tex_pack_table=tex_pack_table,
     )
     return dev, meta

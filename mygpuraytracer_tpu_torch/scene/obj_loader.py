@@ -7,9 +7,11 @@ material of the .mtl (the reference assumes one material per model,
 scene.cpp:68,134) with its kd/ks/ke/bump texture maps, and synthesizes a
 scene Material from it (scene.cpp:220-232).
 
-Geometry is parsed in pure Python, in file order (the JAX package may use
-its native loader, which Morton-orders the triangles;
-``device_scene.build_device_scene`` Morton-orders the face buffer either way).
+Geometry is parsed by the native loader (``native_loader.py``: the JAX
+package's C++ parser, which Morton-orders the triangles), built for the host
+at first use; without a host C++ compiler it is parsed in Python, in file
+order. ``device_scene.build_device_scene`` Morton-orders the face buffer
+either way; only faces whose codes tie keep the parser's order.
 
 Deviation from the reference (documented): scene.cpp:60-65 initializes
 ``maxX``/``minZ``/``maxZ`` with the wrong FLT_MAX/FLT_MIN sentinels, producing
@@ -25,6 +27,7 @@ import sys
 
 import numpy as np
 
+from .native_loader import native_parse_obj
 from .structs import FaceArray, Material, Texture
 from ..utils.png import load_texture
 
@@ -196,7 +199,8 @@ def load_obj(path: str, mtl_search_path: str | None = None) -> ObjModel:
     OBJ itself and in a sibling ``textures/`` directory so reference assets
     resolve from any CWD.
     """
-    pos, uv, mn, mx = _python_parse_geometry(path)
+    native = native_parse_obj(path)
+    pos, uv, mn, mx = native if native is not None else _python_parse_geometry(path)
     faces = FaceArray(positions=pos, uvs=uv)
 
     obj_dir = os.path.dirname(os.path.abspath(path))

@@ -42,6 +42,26 @@ def test_app_no_denoise_and_batches(tmp_path):
     assert sorted(n.split(".")[-2][1:] for n in names) == ["albedo", "input", "samp"]
 
 
+def test_app_renders_textured_ship(tmp_path):
+    """The mesh path's app line on the textured, bump-mapped ship at 16x16:
+    four PNGs. On the CPU the mesh query is the chunked stream unless the
+    tiers are asked for; the flags parse and reach the options."""
+    args = raytrace.parse_args(["scenes/shipTexOnly.txt", "--mesh-tier", "lists",
+                                "--mesh-sort", "need", "--winner-table", "f16"])
+    assert (args.mesh_tier, args.mesh_sort, args.winner_table) == ("lists", "need", "f16")
+    rc = raytrace.main(["scenes/shipTexOnly.txt", "--resolution", "16", "16", "--iterations", "1",
+                        "--device", "cpu", "--quiet", "--mesh-tier", "rows",
+                        "--out-dir", str(tmp_path)])
+    assert rc == 0
+    names = sorted(p.name for p in pathlib.Path(tmp_path).iterdir())
+    assert len(names) == 4 and all(n.startswith("shipTexOnly.") for n in names)
+    for suffix in SUFFIXES:
+        (match,) = [n for n in names if n.endswith(suffix)]
+        assert read_png(str(tmp_path / match)).shape == (16, 16, 3)
+    albedo = read_png(str(tmp_path / [n for n in names if n.endswith("albedo.png")][0]))
+    assert albedo.mean() > 0  # the ship's kd texels reach the albedo AOV
+
+
 def test_mirror_x():
     img = np.arange(12, dtype=np.float32).reshape(1, 4, 3)
     np.testing.assert_array_equal(raytrace.mirror_x(img)[0, 0], img[0, 3])

@@ -15,7 +15,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "mygpuraytracer_tpu_torch"
-SOURCES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+SOURCES = sorted(p.relative_to(REPO).as_posix()
+                 for p in [*PORT.rglob("*.py"), *PORT.glob("csrc/*.cu")]) + ["chip_smoke.py"]
 MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
@@ -54,6 +55,16 @@ def test_source_names_no_jax(path):
                          text), f"{path} names the JAX package as a module"
 
 
+def test_scan_covers_the_mesh_path():
+    for module in ("mygpuraytracer_tpu_torch.ops.mesh_hit", "mygpuraytracer_tpu_torch.ops.trace",
+                   "mygpuraytracer_tpu_torch.scene.native_loader",
+                   "mygpuraytracer_tpu_torch.utils.png"):
+        assert module in MODULES
+    for path in ("mygpuraytracer_tpu_torch/csrc/mesh_hit.cu",
+                 "mygpuraytracer_tpu_torch/csrc/megakernel.cu"):
+        assert path in SOURCES
+
+
 def _default(fn, name):
     return inspect.signature(fn).parameters[name].default
 
@@ -70,6 +81,13 @@ def test_entry_points_default_to_cuda():
     assert _default(load_denoiser, "device") == "cuda"
     assert raytrace.parse_args(["cornell"]).device == "cuda"
     assert raytrace.parse_args(["cornell"]).megakernel == "auto"
+    args = raytrace.parse_args(["scenes/cornellShipTex.txt"])
+    assert (args.mesh_tier, args.mesh_sort, args.winner_table) == ("rows", "auto", "auto")
+    from mygpuraytracer_tpu_torch.config import RenderOptions
+    from mygpuraytracer_tpu_torch.ops.trace import intersect_soa
+
+    assert RenderOptions().mesh_pallas is None  # None: the mesh kernel on CUDA tensors
+    assert _default(intersect_soa, "mesh_pallas") is None
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -3,8 +3,10 @@
 Same inputs on both sides: the builtin factories with the same arguments,
 the bundled scenes/*.txt, and a 12-face cube OBJ written into tmp_path.
 Tolerance: exact equality for everything the port copies or computes in the
-same float32/float64 steps; mesh faces are compared as sets (the JAX loader
-may Morton-order them natively, the port parses in file order).
+same float32/float64 steps; mesh faces are compared as sets by the generic
+scene comparison, and in order by the OBJ tests below (both packages parse
+with the C++ loader, which Morton-orders them; without a host compiler the
+port parses in Python, in file order).
 """
 
 import dataclasses
@@ -108,6 +110,32 @@ def test_cube_obj_scene_matches(tmp_path):
     js, ts = jax_load_scene(path), load_scene(path)
     _assert_same_scene(js, ts)
     assert len(ts.all_faces[-1]) == 12
+
+
+@pytest.mark.parametrize("obj", ["spaceship_tex.obj", "spaceship.obj"])
+def test_obj_faces_in_jax_order(obj):
+    """The port's loader lays the faces out in the JAX package's order, so
+    the clusters and plane-form buffers built from them are the same."""
+    from mygpuraytracer_tpu.scene.obj_loader import load_obj as jax_load_obj
+    from mygpuraytracer_tpu_torch.scene.obj_loader import load_obj
+
+    path = str(REPO / "scenes/models" / obj)
+    a, b = jax_load_obj(path).faces, load_obj(path).faces
+    np.testing.assert_array_equal(b.positions, a.positions)
+    np.testing.assert_array_equal(b.uvs, a.uvs)
+
+
+def test_python_parse_equals_native_file_order():
+    """The fallback parser (no host compiler) reads what the C++ loader
+    reads, in file order."""
+    from mygpuraytracer_tpu_torch.scene.native_loader import native_parse_obj
+    from mygpuraytracer_tpu_torch.scene.obj_loader import _python_parse_geometry
+
+    path = str(REPO / "scenes/models/spaceship_tex.obj")
+    native = native_parse_obj(path, morton_order=False)
+    assert native is not None
+    for a, b in zip(_python_parse_geometry(path), native):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_transforms_match():
