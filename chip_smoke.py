@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths (mygpuraytracer_tpu_torch) on the card at
-800x800, depth 8: the builtin Cornell box through the K1 CUDA kernel, and
+Drives the port's three main paths (mygpuraytracer_tpu_torch) on the card
+at 800x800, depth 8: the builtin Cornell box through the K1 CUDA kernel;
 the 23,328-face spaceship in the Cornell box, textured and bump-mapped
 (scenes/cornellShipTex.txt) and plain (scenes/cornellShip.txt), through the
-wavefront and the mesh tiers' CUDA kernel (K2/K3/K4); both denoised with
-the U-Net. Phases, each printing one line with its elapsed seconds:
+wavefront and the mesh tiers' CUDA kernel (K2/K3/K4); and cornellShip
+through the bounce megakernel K5 with the K6 uniforms for its raygen; all
+denoised with the U-Net. Phases, each printing one line with its elapsed
+seconds:
 
 1. device      -- the card's name and power limit (nvidia-smi); fails without CUDA
 2. build       -- one nvcc per csrc/*.cu, in parallel, into the gitignored build dir
@@ -24,9 +26,21 @@ the U-Net. Phases, each printing one line with its elapsed seconds:
                   then the kernel timed with CUDA events (mesh_time) and two
                   iterations under torch.profiler (mesh_profile): device busy
                   share and the kernels that take the device time
-7. denoise     -- the fused denoise (bf16 net) against the float32 net on the
+7. prng        -- K6 against its plain version bit for bit at [4, N] and
+                  [28, N] for three seeds; its values on the 2^-24 grid with
+                  U[0,1)'s mean and variance; K6 timed beside torch.rand
+8. k5_parity   -- K5 against its plain version (the wavefront over the plain
+                  walk) on the main path's inputs: cornellShip and the
+                  open-sky shipOnly at 800x800, depth 8, seed 0, its first 2
+                  iterations, under rng "threefry" and "auto"
+9. bounce_render -- the K5 main path: Renderer(megakernel, bounce_megakernel,
+                  rng="auto").render_denoised of cornellShip with the K5 and
+                  K6 launches counted; K5 timed per launch with its bound;
+                  two iterations under torch.profiler; its image against the
+                  wavefront's (mesh kernel, same rng) over 4 iterations
+10. denoise    -- the fused denoise (bf16 net) against the float32 net on the
                   card, and the float32 net on the card against the CPU
-8. app         -- `python -m mygpuraytracer_tpu_torch.apps.raytrace` in a
+11. app        -- `python -m mygpuraytracer_tpu_torch.apps.raytrace` in a
                   subprocess on cornell and on cornellShipTex, each writing
                   its four PNGs into a temporary directory
 
@@ -55,7 +69,7 @@ from mygpuraytracer_tpu_torch import _build
 from mygpuraytracer_tpu_torch.config import RenderOptions
 from mygpuraytracer_tpu_torch.denoise.unet import no_tf32
 from mygpuraytracer_tpu_torch.ops import mesh_hit as mh
-from mygpuraytracer_tpu_torch.ops import rng, trace
+from mygpuraytracer_tpu_torch.ops import prng, rng, trace
 from mygpuraytracer_tpu_torch.ops.trace import intersect_soa
 from mygpuraytracer_tpu_torch.ops.vec3 import Vec3
 from mygpuraytracer_tpu_torch.render import Renderer, megakernel
@@ -121,6 +135,20 @@ FP_OPS_SHADE = 120  # diffuse bounce: cosine hemisphere (2 sqrt, sin, cos, 2 nor
 # its cost for the live rays is printed beside the bound, not in it.
 FP_OPS_FACE_TEST = 51
 FP_OPS_SLAB = 26
+# K6 against its plain version: bit for bit (integer arithmetic and one
+# exact conversion). Its values: on the 2^-24 grid in [0, 1), mean and
+# variance within 5 sigma of U[0,1)'s.
+PRNG_SEEDS = (0, 1234567, -(2**31))
+# K5 against its plain version: K1's bars (PARITY_RMSE, PARITY_PIXEL_SHARE)
+# on the mean over the main path's first K5_PARITY_ITERS iterations, at its
+# 800x800. Besides K1's rounding (FMA contraction, rsqrt) the walk visits
+# clusters near to far where the plain version goes in ascending id, so
+# among faces at exactly equal t another may win. The plain walk syncs the
+# host once per cluster and bounce (~3 s per 800x800 iteration on an H100),
+# so its cost grows with iterations, not pixels.
+K5_PARITY_ITERS = 2
+BOUNCE_ITERS = 16  # the K5 main path: one render_denoised of 16 iterations
+BOUNCE_IMAGE_ITERS = 4  # K5 against the wavefront, image of 4 iterations
 MESH_SCENES = ("cornellShipTex", "cornellShip")
 MESH_ITERS = 16  # the main path: one render_denoised of 16 iterations
 MESH_TIER_ITERS = 2  # the lists and conds tiers' own main-path runs
@@ -151,13 +179,15 @@ def cuda_ms(fn, repeats: int = 1) -> float:
 
 def ray_bounces(dev, meta, options, iterations) -> int:
     """Ray-bounces (one nearest-hit test + one shade of a live path) that
-    ``iterations`` of this scene execute: the data-dependent work K1 does."""
+    ``iterations`` of this scene execute under ``options.rng``: the
+    data-dependent work K1 and K5 do."""
     n = meta.resolution[0] * meta.resolution[1]
     key = rng.make_key(SEED)
     total = 0
     for it in iterations:
-        U = rng.uniform(rng.iteration_key(key, it), (num_rng_streams(meta.trace_depth), n),
-                        dev.camera.position.device)
+        U = prng.iteration_uniforms(options, rng.iteration_key(key, it), it,
+                                    num_rng_streams(meta.trace_depth), n,
+                                    dev.camera.position.device)
         o, d = generate_camera_rays(dev.camera, meta.resolution, options, U)
         ones = torch.ones(n, device=o.x.device)
         s = PathStateSoA(o, d, Vec3(ones, ones, ones),
@@ -547,6 +577,184 @@ def main() -> int:
         print(f"    device {e.self_device_time_total / 1e3 / PROFILE_ITERS:9.3f} ms/iter "
               f"x{e.count // PROFILE_ITERS:6d}  {e.key[:90]}", flush=True)
 
+    # ---- prng: K6 against its plain version ----------------------------------------
+    n = RES * RES
+    k6_max_abs = 0.0
+    for seed in PRNG_SEEDS:
+        for k in (4, num_rng_streams(DEPTH)):
+            got = prng.pallas_uniforms(seed, k, n, device)
+            want = prng.uniforms_reference(seed, k, n, device)
+            k6_max_abs = max(k6_max_abs, float((got - want).abs().max()))
+            scaled = got.double() * 2**24
+            m = got.numel()
+            mean, var = float(got.double().mean()), float(got.double().var())
+            ok = (bool(torch.equal(got, want)) and float(got.min()) >= 0.0
+                  and float(got.max()) < 1.0 and bool(torch.equal(scaled, scaled.round()))
+                  and abs(mean - 0.5) < 5 * (1 / 12 / m) ** 0.5
+                  and abs(var - 1 / 12) < 5 * ((1 / 80 - 1 / 144) / m) ** 0.5)
+            phase("prng", seed=seed, shape=f"{k}x{n}", bitwise=bool(torch.equal(got, want)),
+                  mean=f"{mean:.6f}", var=f"{var:.6f}")
+            if not ok:
+                raise AssertionError(f"K6 at seed {seed}, [{k}, {n}] disagrees with its plain "
+                                     "version or is not U[0,1) on the 2^-24 grid")
+    k6 = {}
+    for k in (4, num_rng_streams(DEPTH)):
+        run_k6 = lambda: prng.pallas_uniforms(PRNG_SEEDS[1], k, n, device)
+        run_k6()  # warm-up
+        ms = float(np.median([cuda_ms(run_k6) for _ in range(7)]))
+        plain = lambda: prng.uniforms_reference(PRNG_SEEDS[1], k, n, device)
+        plain()
+        plain_ms = cuda_ms(plain)
+        rand = lambda: torch.rand(k, n, device=device)
+        rand()
+        rand_ms = float(np.median([cuda_ms(rand) for _ in range(7)]))
+        t_int = k * n * INT_OPS_PER_DRAW / INT32_OPS_PER_S
+        t_bytes = 4 * k * n / HBM_BYTES_PER_S
+        k6[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=rand_ms,
+                     bound_ms=1e3 * max(t_int, t_bytes),
+                     bound_by="operations" if t_int >= t_bytes else "bytes")
+        phase("prng", shape=f"{k}x{n}", k6_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}",
+              torch_rand_ms=f"{rand_ms:.4f}", int32_ops=f"{k * n * INT_OPS_PER_DRAW:.3e}",
+              bytes=4 * k * n, bound_ms=f"{k6[k]['bound_ms']:.4f}", bound_by=k6[k]["bound_by"],
+              of_bound=f"{k6[k]['bound_ms'] / ms:.3f}", vs_torch_rand=f"{ms / rand_ms:.2f}")
+
+    # ---- k5_parity: K5 against its plain version on the main path's inputs ------------
+    k5_parity = {}
+    for name in ("cornellShip", "shipOnly"):
+        for mode in ("threefry", "auto"):
+            opts = RenderOptions(megakernel=True, bounce_megakernel=True, rng=mode)
+            rp = Renderer(mesh_scene(name), opts, seed=SEED, device=device)
+            if not (rp.use_megakernel and megakernel._uses_bvh(rp.meta)):
+                raise AssertionError(f"Renderer did not route {name} to K5")
+            acc_k = torch.zeros((9, n), device=device)
+            acc_p = torch.zeros((9, n), device=device)
+            megakernel.bvh_bounce_accumulate(rp.dev, rp.meta, opts, acc_k, 1, K5_PARITY_ITERS,
+                                             rp.base_key, record=rp.record)
+            torch.cuda.synchronize()
+            plain_ms = cuda_ms(lambda: megakernel.bvh_bounce_accumulate_reference(
+                rp.dev, rp.meta, opts, acc_p, 1, K5_PARITY_ITERS, rp.base_key))
+            to_img = lambda rows: rows.reshape(3, RES, RES).permute(1, 2, 0).cpu().numpy()
+            mean_k = to_img(acc_k[0:3]) / K5_PARITY_ITERS
+            mean_p = to_img(acc_p[0:3]) / K5_PARITY_ITERS
+            if not (np.isfinite(mean_k).all() and mean_k.mean() > 1e-3):
+                raise AssertionError(f"K5 image of {name} is not finite or is black")
+            cmp = compare_images(mean_k, mean_p)
+            albedo = compare_images(to_img(acc_k[3:6]), to_img(acc_p[3:6]))
+            normal = compare_images(to_img(acc_k[6:9]), to_img(acc_p[6:9]))
+            phase("k5_parity", scene=name, rng=mode, res=RES, iterations=K5_PARITY_ITERS,
+                  **{k: f"{v:.3e}" for k, v in cmp.items()},
+                  equal=bool(np.array_equal(mean_k, mean_p)),
+                  aov_max_abs=f"{max(albedo['max_abs'], normal['max_abs']):.3e}",
+                  albedo_share_gt_1e_2=f"{albedo['share_gt_1e-2']:.3e}",
+                  normal_share_gt_1e_2=f"{normal['share_gt_1e-2']:.3e}",
+                  plain_ms_per_iter=f"{plain_ms / K5_PARITY_ITERS:.1f}")
+            if cmp["rmse_agreeing"] >= PARITY_RMSE or cmp["share_gt_1e-2"] >= PARITY_PIXEL_SHARE \
+                    or albedo["share_gt_1e-2"] >= PARITY_PIXEL_SHARE \
+                    or normal["share_gt_1e-2"] >= PARITY_PIXEL_SHARE:
+                raise AssertionError(f"K5 disagrees with its plain version on {name} {mode}: "
+                                     f"{cmp}, albedo {albedo}, normal {normal}")
+            k5_parity[name, mode] = dict(cmp, plain_ms=plain_ms / K5_PARITY_ITERS)
+
+    # ---- bounce_render: the K5 main path, counted ------------------------------------
+    bounce_options = RenderOptions(megakernel=True, bounce_megakernel=True, rng="auto")
+    r = Renderer(mesh_scene("cornellShip"), bounce_options, seed=SEED, device=device)
+    if not (r.use_megakernel and megakernel._uses_bvh(r.meta)):
+        raise AssertionError("Renderer did not route cornellShip to K5")
+    with patched(trace, "mesh_intersect_soa", refuse):
+        megakernel.BOUNCE_LAUNCHES = prng.LAUNCHES = 0
+        t = time.perf_counter()
+        denoised, beauty = r.render_denoised(iterations=BOUNCE_ITERS, batch=16)
+        wall_s = time.perf_counter() - t
+        k5_launches, k6_launches = megakernel.BOUNCE_LAUNCHES, prng.LAUNCHES
+    if k5_launches < 1 or k6_launches < 1:
+        raise AssertionError(f"the K5 path launched K5 {k5_launches} and K6 {k6_launches} times")
+    if not (denoised.shape == (RES, RES, 3) and np.isfinite(denoised).all()
+            and np.isfinite(beauty).all() and beauty.mean() > 1e-3
+            and 0.0 <= denoised.min() and denoised.max() <= 1.0):
+        raise AssertionError("cornellShip through K5: denoised output is not a finite [0,1] image")
+    r.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r.render(iterations=BOUNCE_ITERS, batch=16)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t
+    phase("bounce_render", scene="cornellShip", main_path_s=f"{wall_s:.2f}",
+          k5_launches=k5_launches, k6_launches=k6_launches, render_s=f"{render_s:.3f}",
+          ms_per_iter=f"{1e3 * render_s / BOUNCE_ITERS:.2f}",
+          msamples_per_s=f"{RES * RES * BOUNCE_ITERS / render_s / 1e6:.2f}",
+          beauty_mean=f"{beauty.mean():.4f}", denoised_mean=f"{denoised.mean():.4f}")
+
+    # K5 alone, timed with CUDA events on the main path's own rays.
+    dev, meta, record = r.dev, r.meta, r.record
+    all_rays = []
+    for it in range(1, BOUNCE_ITERS + 1):
+        ikey = rng.iteration_key(r.base_key, it)
+        U = prng.iteration_uniforms(bounce_options, ikey, it, 4, n, device)
+        o, d = generate_camera_rays(dev.camera, meta.resolution, bounce_options, U)
+        all_rays.append((it, ikey, torch.stack([o.x, o.y, o.z, d.x, d.y, d.z])))
+    acc = torch.zeros((9, n), device=device)
+    visits = torch.zeros(n, dtype=torch.int32, device=device)
+    for it, ikey, rays in all_rays:
+        megakernel.bounce_launch(dev, meta, bounce_options, acc, rays, it, ikey, record, visits)
+    run_k5 = lambda: [megakernel.bounce_launch(dev, meta, bounce_options, acc, rays, it, ikey,
+                                               record) for it, ikey, rays in all_rays]
+    k5_ms = float(np.median([cuda_ms(run_k5) for _ in range(3)])) / BOUNCE_ITERS
+    k5_plain_ms = k5_parity["cornellShip", "auto"]["plain_ms"]  # per iteration, the same inputs
+    bounces = ray_bounces(dev, meta, bounce_options, range(1, BOUNCE_ITERS + 1))
+    fp_k1, int_ops = k1_ops(meta, bounce_options, 0, bounces)  # raygen runs outside K5
+    face_ops = float(visits.sum()) * 128 * FP_OPS_FACE_TEST
+    fp_ops = fp_k1 + face_ops
+    k5_bytes = BOUNCE_ITERS * 4 * (6 * n + 2 * 9 * n + record.numel() + dev.face_plane.numel()
+                                   + dev.cluster_bounds.numel())
+    t_ops = max(fp_ops / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
+    t_bytes = k5_bytes / HBM_BYTES_PER_S
+    k5_bound_ms = 1e3 * max(t_ops, t_bytes) / BOUNCE_ITERS
+    k5_bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    phase("bounce_render", k5_ms_per_launch=f"{k5_ms:.3f}", plain_ms_per_iter=f"{k5_plain_ms:.1f}",
+          ray_bounces=bounces, bounces_per_sample=f"{bounces / (n * BOUNCE_ITERS):.3f}",
+          cluster_visits=int(visits.sum()),
+          visits_per_ray_bounce=f"{float(visits.sum()) / max(bounces, 1):.3f}",
+          fp32_ops=f"{fp_ops:.3e}", face_test_ops=f"{face_ops:.3e}", int32_ops=f"{int_ops:.3e}",
+          bytes=k5_bytes, bound_ms_per_launch=f"{k5_bound_ms:.4f}", bound_by=k5_bound_by,
+          of_bound=f"{k5_bound_ms / k5_ms:.3f}")
+
+    # Where the K5 path's device time goes: two iterations under the profiler.
+    r.reset()
+    r.render(iterations=1)  # warm-up
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        r.render(iterations=PROFILE_ITERS, batch=PROFILE_ITERS)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t)
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    k5_prof_ms = sum(e.self_device_time_total for e in on_card if "k5_kernel" in e.key) / 1e3
+    phase("bounce_profile", scene="cornellShip", iterations=PROFILE_ITERS,
+          wall_ms_per_iter=f"{prof_wall_ms / PROFILE_ITERS:.2f}",
+          device_busy_ms_per_iter=f"{busy_ms / PROFILE_ITERS:.2f}",
+          device_busy_share=f"{busy_ms / prof_wall_ms:.3f}",
+          k5_ms_per_iter=f"{k5_prof_ms / PROFILE_ITERS:.2f}",
+          kernels_per_iter=sum(e.count for e in on_card) // PROFILE_ITERS)
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:4]:
+        print(f"    device {e.self_device_time_total / 1e3 / PROFILE_ITERS:9.3f} ms/iter "
+              f"x{e.count // PROFILE_ITERS:6d}  {e.key[:90]}", flush=True)
+
+    # The same 4 iterations through K5 and through the wavefront (mesh kernel, same rng).
+    images = []
+    for opts in (bounce_options, app_options(rng="auto")):
+        rr = Renderer(mesh_scene("cornellShip"), opts, seed=SEED, device=device)
+        if rr.use_megakernel != (opts is bounce_options):
+            raise AssertionError(f"unexpected route for {opts}")
+        images.append(rr.render(iterations=BOUNCE_IMAGE_ITERS, batch=BOUNCE_IMAGE_ITERS))
+    bounce_cmp = compare_images(*images)
+    phase("bounce_render", check="k5_vs_wavefront", iterations=BOUNCE_IMAGE_ITERS,
+          equal=bool(np.array_equal(*images)), **{k: f"{v:.3e}" for k, v in bounce_cmp.items()})
+    if bounce_cmp["rmse_agreeing"] >= PARITY_RMSE \
+            or bounce_cmp["share_gt_1e-2"] >= PARITY_PIXEL_SHARE:
+        raise AssertionError(f"K5 and wavefront images disagree: {bounce_cmp}")
+
     # ---- denoise ----------------------------------------------------------------
     net, random_weights = load_denoiser("rt_ldr_alb", device)
     if random_weights:
@@ -619,6 +827,28 @@ def main() -> int:
             "bound_by": main_time["bound_by"],
             "library_ms": None,
         })
+    kernels.append({
+        "name": "k5_bounce",
+        "route": "cuda",
+        "source": "mygpuraytracer_tpu_torch/csrc/bounce.cu",
+        "replaces": "mygpuraytracer_tpu/render/megakernel.py:355",
+        "launches": k5_launches,
+        "max_abs_err": k5_parity["cornellShip", "auto"]["max_abs"],
+        "ms": k5_ms,
+        "plain_ms": k5_plain_ms,
+        "bound_ms": k5_bound_ms,
+        "bound_by": k5_bound_by,
+        "library_ms": None,
+    })
+    kernels.append({
+        "name": "k6_uniforms",
+        "route": "cuda",
+        "source": "mygpuraytracer_tpu_torch/csrc/prng.cu",
+        "replaces": "mygpuraytracer_tpu/ops/prng.py:28",
+        "launches": k6_launches,
+        "max_abs_err": k6_max_abs,
+        **{key_: k6[4][key_] for key_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,9 +2,10 @@
 
 The same option names and defaults as ``mygpuraytracer_tpu/config.py`` (one
 options object can drive both packages in a test). Options whose meaning was
-specific to the TPU keep their names. The port does not read ``dtype``,
-``rng`` (always threefry), ``bounce_megakernel``, ``sort_by_material`` and
-``sort_impl`` yet.
+specific to the TPU keep their names. The port reads ``rng`` (threefry, or
+the K6 counter stream of ``ops/prng.py``) and ``bounce_megakernel`` (the K5
+route for large untextured meshes); it does not read ``dtype``,
+``sort_by_material`` and ``sort_impl`` yet.
 """
 
 from __future__ import annotations
@@ -44,13 +45,20 @@ class RenderOptions:
     # Faces per chunk of the Moller-Trumbore mesh stream (the result does
     # not depend on it).
     face_chunk: int = 64
-    # Options of the JAX package's TPU paths, kept by name so that one
-    # options object drives both packages; not read by the port yet.
+    # The trace core's dtype on the TPU, kept by name so that one options
+    # object drives both packages; not read by the port yet.
     dtype: str = "float32"
+    # The wavefront's and K5's random numbers (ops/prng.py): "threefry"
+    # (bit-exact with jax.random), "pallas" (the K6 counter stream, a CUDA
+    # kernel on CUDA) or "auto" (pallas off the CPU); the CPU always draws
+    # threefry, as the JAX package does. K1 draws threefry whatever it says.
     rng: str = "threefry"
     # Run whole iterations in the K1 CUDA kernel (render/megakernel.py) for
     # scenes it supports; others take the wavefront path.
     megakernel: bool = False
+    # With megakernel: meshes of more than 256 faces (untextured) run each
+    # iteration's bounce loop in one K5 launch (csrc/bounce.cu) instead of
+    # the wavefront.
     bounce_megakernel: bool = False
     # Mesh tiers for meshes of more than 256 faces (ops/trace.py): one
     # nearest-face query over 128-face clusters, which runs the mesh CUDA

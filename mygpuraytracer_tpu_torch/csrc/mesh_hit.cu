@@ -41,71 +41,20 @@
 // trace.py:1168-1195); those change only the speed and which face wins
 // among exactly equal t, and are the first speed work for this kernel.
 //
-// Built by mygpuraytracer_tpu_torch/_build.py (nvcc, sm_90a); the C entry
-// point returns cudaGetLastError() after the launch.
+// The slab and face tests live in mesh.cuh, which K5 shares. Built by
+// mygpuraytracer_tpu_torch/_build.py (nvcc, sm_90a); the C entry point
+// returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "mesh.cuh"
+
 namespace {
 
-constexpr int CS = 128;     // faces per cluster
-constexpr int Q = 13;       // plane quantities a face test reads (rows 0-12)
 constexpr int THREADS = 128;
-constexpr float HIT_EPS = 1e-4f;
-constexpr float DIR_EPS = 1e-20f;
 constexpr float PAD_ORIGIN = 1e7f;  // the padding-ray convention of the tiers
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-};
-
-__device__ __forceinline__ float dot_rn(float ax, float ay, float az, float bx, float by,
-                                        float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
-}
-
-__device__ __forceinline__ float clamp_eps(float x) { return fabsf(x) < DIR_EPS ? DIR_EPS : x; }
-
-// Slab test of cluster c (trace.py:746-783): the ray enters the box at some
-// t >= 0 before its best hit so far. inv = 1 / clamp_eps(d) per axis.
-__device__ __forceinline__ bool cluster_needed(const Ray& r, float ix, float iy, float iz,
-                                               const float* bounds, int c, int num_clusters,
-                                               float best) {
-  const float t1 = __fmul_rn(__fsub_rn(bounds[c], r.ox), ix);
-  const float t2 = __fmul_rn(__fsub_rn(bounds[3 * num_clusters + c], r.ox), ix);
-  const float u1 = __fmul_rn(__fsub_rn(bounds[num_clusters + c], r.oy), iy);
-  const float u2 = __fmul_rn(__fsub_rn(bounds[4 * num_clusters + c], r.oy), iy);
-  const float v1 = __fmul_rn(__fsub_rn(bounds[2 * num_clusters + c], r.oz), iz);
-  const float v2 = __fmul_rn(__fsub_rn(bounds[5 * num_clusters + c], r.oz), iz);
-  const float tin = fmaxf(fmaxf(fminf(t1, t2), fminf(u1, u2)), fminf(v1, v2));
-  const float tout = fminf(fminf(fmaxf(t1, t2), fmaxf(u1, u2)), fmaxf(v1, v2));
-  return tout >= fmaxf(tin, 0.0f) && tin < best;
-}
-
-// Plane-form face test (trace.py:808-836). f points at the face's first
-// quantity; quantity q lies at f[q * stride]. True if the face is hit at
-// HIT_EPS < t < best and 0 <= u, 0 <= v, u + v <= 1.
-__device__ __forceinline__ bool face_test(const Ray& r, const float* f, int stride, float best,
-                                          float* t_out, float* u_out, float* v_out) {
-  const float fnx = f[0], fny = f[stride], fnz = f[2 * stride], c = f[3 * stride];
-  const float A = dot_rn(r.ox, r.oy, r.oz, fnx, fny, fnz);
-  const float B = clamp_eps(dot_rn(r.dx, r.dy, r.dz, fnx, fny, fnz));
-  const float t = __fdiv_rn(__fsub_rn(c, A), B);
-  const float ux = f[4 * stride], uy = f[5 * stride], uz = f[6 * stride], cu = f[7 * stride];
-  const float du = dot_rn(r.dx, r.dy, r.dz, ux, uy, uz);
-  const float ou = dot_rn(r.ox, r.oy, r.oz, ux, uy, uz);
-  const float u = __fsub_rn(__fadd_rn(ou, __fmul_rn(t, du)), cu);
-  const float vx = f[8 * stride], vy = f[9 * stride], vz = f[10 * stride], cv = f[11 * stride];
-  const float dv = dot_rn(r.dx, r.dy, r.dz, vx, vy, vz);
-  const float ov = dot_rn(r.ox, r.oy, r.oz, vx, vy, vz);
-  const float v = __fsub_rn(__fadd_rn(ov, __fmul_rn(t, dv)), cv);
-  *t_out = t;
-  *u_out = u;
-  *v_out = v;
-  return u >= 0.0f && v >= 0.0f && __fadd_rn(u, v) <= 1.0f && t > HIT_EPS && t < best;
-}
 
 __global__ void __launch_bounds__(THREADS)
 mesh_hit_kernel(const float* __restrict__ rays, const float* __restrict__ face_plane,

@@ -5,6 +5,7 @@ Reproduces ``jax.random.key``, ``fold_in`` and ``uniform`` (float32) as JAX
 
 - a key is the word pair ``(seed >> 32, seed & 0xFFFFFFFF)``;
 - ``fold_in(key, data)`` is ``threefry2x32(key, (0, data))``;
+- ``split(key, num)`` gives key ``i`` = ``threefry2x32(key, (0, i))``;
 - the bits of element ``i`` of a shape (row-major flat index) are
   ``y0 ^ y1`` of ``threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))``;
 - a uniform is ``bitcast((bits >> 9) | 0x3F800000) - 1``.
@@ -61,6 +62,30 @@ def fold_in(key: Key, data: int) -> Key:
     """``jax.random.fold_in(key, data)``."""
     y0, y1 = threefry2x32(key[0], key[1], 0, int(data) & MASK32)
     return (int(y0), int(y1))
+
+
+def split(key: Key, num: int = 2) -> list[Key]:
+    """``jax.random.split(key, num)``: key ``i`` is the word pair of
+    ``threefry2x32(key, (0, i))``."""
+    return [fold_in(key, i) for i in range(num)]
+
+
+def randint(key: Key, minval: int = 0, maxval: int = 2**31 - 1) -> int:
+    """``jax.random.randint(key, (), minval, maxval, dtype=int32)`` for
+    ``minval < maxval`` within int32, as ``jax/_src/random.py::_randint``
+    computes it: two 32-bit words under ``split(key)``, reduced modulo the
+    span with uint32 arithmetic that wraps."""
+    if not -(2**31) <= minval < maxval <= 2**31 - 1:
+        raise ValueError(f"need int32 bounds with minval < maxval, got {minval}, {maxval}")
+    k1, k2 = split(key)
+    higher, lower = (int(random_bits(k, 1)[0]) for k in (k1, k2))
+    span = (maxval - minval) & MASK32
+    multiplier = (2**16) % span
+    multiplier = ((multiplier * multiplier) & MASK32) % span
+    offset = (((higher % span) * multiplier) & MASK32) + (lower % span)
+    offset = (offset & MASK32) % span
+    value = (minval + offset) & MASK32
+    return value - 2**32 if value >= 2**31 else value
 
 
 def random_bits(key: Key, numel: int, device="cpu", offset: int = 0) -> torch.Tensor:

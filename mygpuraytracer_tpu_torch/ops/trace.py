@@ -17,6 +17,10 @@ Counterpart of ``mygpuraytracer_tpu/ops/trace.py``:
   how they turn the winner into texcoords and the TBN frame. Otherwise the
   faces stream in chunks through Moller-Trumbore (the CPU default and the
   oracle of the goldens), where the lowest face index wins a tie;
+- ``bvh_scene_hit``, ``mesh_nearfar_hit`` and ``bvh_scene_hit_nearfar`` are
+  the plain versions of the whole-scene query that K5 (``csrc/bounce.cu``)
+  computes for untextured meshes: the primitives, then the nearest face
+  under their t by ``mesh_hit_reference``;
 - ``fetch_texel_soa`` and ``fetch_texels_packed`` read texels from the
   byte-packed atlases for textured and bump-mapped meshes.
 """
@@ -29,7 +33,7 @@ import torch
 
 from ..scene.structs import GeomType
 from . import vec3 as v3
-from .mesh_hit import mesh_hit
+from .mesh_hit import mesh_hit, mesh_hit_reference
 from .vec3 import Vec3
 
 HIT_EPS = 1e-4
@@ -490,6 +494,60 @@ def mesh_pallas_hit(meta, fp, o: Vec3, d: Vec3, t_cap, ex=None, with_uv: bool = 
     return mesh_list_hit(meta, fp, o, d, t_cap, ex, with_uv, with_tb, bounds)
 
 
+def _merge_mesh_winner(meta, run: _Running, win, mt, fn: Vec3, gf) -> Vec3:
+    """Take a mesh winner (t < the running t) into ``run``: its t, unit face
+    normal (returned), OBJ flag and its geom's material by geom id."""
+    mesh_nrm = v3.normalize(fn)
+    run.t = torch.where(win, mt, run.t)
+    run.normal = v3.where(win, mesh_nrm, run.normal)
+    run.is_obj = run.is_obj | win
+    for gi, g in enumerate(meta.geoms):
+        if g.type == int(GeomType.OBJ):
+            run.set_material(win & ((gf - gi).abs() < 0.5), g)
+    return mesh_nrm
+
+
+def bvh_scene_hit(meta, fp, o: Vec3, d: Vec3, bounds=None) -> HitSoA:
+    """The primitives, then the nearest mesh face closer than their t, with
+    materials resolved: the untextured whole-scene query of the JAX
+    package's megakernels (``bvh_scene_hit``), as a plain version. ``fp``
+    is ``dev.face_plane`` and ``bounds`` ``dev.cluster_bounds`` (built from
+    ``meta`` when None); the mesh query is ``mesh_hit_reference``."""
+    everyone = torch.ones(o.x.shape, dtype=torch.bool, device=o.x.device)
+    return bvh_scene_hit_nearfar(meta, fp, o, d, everyone, bounds)
+
+
+def mesh_nearfar_hit(meta, fp, o: Vec3, d: Vec3, t_cap, active, bounds=None):
+    """Plain version of K5's near-to-far cluster walk: for each ``active``
+    ray, the nearest face closer than ``t_cap``; dead lanes find none. The
+    walk's order changes only which face wins among faces at exactly equal
+    t, so this runs ``mesh_hit_reference`` (ascending cluster id).
+
+    Returns (win bool[N], t [N] (``t_cap`` where no face won), the winner's
+    unnormalized face normal Vec3, geom id f32 [N], -1 for none), like the
+    JAX function."""
+    if bounds is None:
+        bounds = _cluster_bounds(meta, o.x.device)
+    rays = torch.stack([
+        torch.where(active, o.x, 1e7), torch.where(active, o.y, 1e7),
+        torch.where(active, o.z, 1e7), torch.where(active, d.x, 1.0),
+        torch.where(active, d.y, 0.0), torch.where(active, d.z, 0.0),
+        torch.where(active, t_cap, 0.0)]).to(torch.float32)
+    out, _ = mesh_hit_reference(fp, bounds, rays)
+    win = out[4] >= 0.0
+    return win, torch.where(win, out[0], t_cap), Vec3(out[1], out[2], out[3]), out[4]
+
+
+def bvh_scene_hit_nearfar(meta, fp, o: Vec3, d: Vec3, active, bounds=None) -> HitSoA:
+    """:func:`bvh_scene_hit` through :func:`mesh_nearfar_hit`: lanes that
+    are not ``active`` report ``hit=False`` and ``t=+inf``."""
+    run = intersect_primitives_soa(meta, o, d)
+    win, mt, fn, gf = mesh_nearfar_hit(meta, fp, o, d, run.t, active, bounds)
+    _merge_mesh_winner(meta, run, win, mt, fn, gf)
+    hit = run.hit_soa()
+    return hit._replace(hit=hit.hit & active, t=torch.where(active, hit.t, INF))
+
+
 def intersect_soa(
     meta, dev, o: Vec3, d: Vec3, face_chunk: int = 128, bounding_box: bool = False,
     mesh_pallas: bool | None = None, mesh_sort: bool | str = False,
@@ -589,15 +647,9 @@ def intersect_soa(
         mt = torch.where(active, mt, INF)
 
     better = mt < run.t
-    mesh_nrm = v3.normalize(mn)
-    run.t = torch.where(better, mt, run.t)
-    run.normal = v3.where(better, mesh_nrm, run.normal)
-    run.is_obj = run.is_obj | better
+    mesh_nrm = _merge_mesh_winner(meta, run, better, mt, mn, mgid)
     run.u = torch.where(better, mu, run.u)
     run.v = torch.where(better, mv, run.v)
-    for gi, g in enumerate(meta.geoms):
-        if g.type == int(GeomType.OBJ):
-            run.set_material(better & ((mgid - gi).abs() < 0.5), g)
 
     if with_bump:
         tangent, bitangent = Vec3(*bex[0:3]), Vec3(*bex[3:6])

@@ -1,46 +1,76 @@
-"""K1: whole Monte-Carlo iterations in one CUDA kernel launch.
+"""The whole-iteration kernels: K1 for primitive and small-mesh scenes, K5
+for large untextured meshes.
 
-The port of ``mygpuraytracer_tpu/render/megakernel.py::_make_kernel`` (the
-Pallas kernel that ``megakernel_accumulate`` launches). One thread follows
-one pixel through ``num_iters`` iterations: AA jitter, thin-lens DoF, the
-bounce loop over cubes, spheres and up to 256 listed triangles, shading,
-and color * pi added into the accumulator. The albedo and normal AOVs are
-written at iteration 1. Source: ``csrc/megakernel.cu``.
+K1 is the port of ``mygpuraytracer_tpu/render/megakernel.py::_make_kernel``
+(the Pallas kernel that ``megakernel_accumulate`` launches). One thread
+follows one pixel through ``num_iters`` iterations: AA jitter, thin-lens
+DoF, the bounce loop over cubes, spheres and up to 256 listed triangles,
+shading, and color * pi added into the accumulator. The albedo and normal
+AOVs are written at iteration 1. Source: ``csrc/megakernel.cu``.
 
-Unlike the TPU kernel, which baked each scene into its program and drew from
-the hardware PRNG, the CUDA kernel is one generic program: the scene reaches
-it as a packed float record (:func:`scene_record`), and it draws threefry
-numbers at the wavefront's counters, so its image equals the plain version's
-(:func:`megakernel_accumulate_reference`) up to float rounding.
+K5 is the port of ``_make_bounce_kernel`` (launched by
+``bvh_bounce_accumulate``), which the JAX package runs for meshes of more
+than 256 faces under ``RenderOptions(megakernel=True,
+bounce_megakernel=True)``. Per iteration: the raygen uniforms through
+``ops/prng.py::iteration_uniforms`` (K6 under ``rng`` "pallas"/"auto" on
+CUDA), the camera rays in PyTorch, then one launch that runs the whole
+bounce loop with the near-to-far cluster walk over ``face_plane`` and adds
+into the accumulator, with K1's AOV rule. Source: ``csrc/bounce.cu``.
 
-The wrapper counts its launches in ``LAUNCHES``. For CPU tensors it runs the
-plain version; for CUDA tensors it launches the kernel or raises.
+Unlike the TPU kernels, which baked each scene into their programs and drew
+from the hardware PRNG, the CUDA kernels are generic programs: the scene
+reaches them as a packed float record (:func:`scene_record`), and they draw
+at the wavefront's counters (K1 always threefry; K5 the stream ``rng``
+selects), so their images equal their plain versions'
+(:func:`megakernel_accumulate_reference`,
+:func:`bvh_bounce_accumulate_reference`) up to float rounding.
+
+The wrappers count their launches in ``LAUNCHES`` (K1) and
+``BOUNCE_LAUNCHES`` (K5). For CPU tensors they run the plain versions; for
+CUDA tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from ..ops import rng
+from ..ops import prng, rng
+from ..ops.trace import bvh_scene_hit_nearfar
+from ..ops.vec3 import Vec3
 from ..scene.device_scene import CameraParams, DeviceScene, SceneMeta
-from .pathtrace import accumulate_sample, render_sample
+from .camera import generate_camera_rays
+from .pathtrace import (SampleOutput, accumulate_sample, num_rng_streams, trace_sample,
+                        wavefront_sample)
 
 # Record layout; csrc/megakernel.cu reads the same offsets.
 HEADER = 16  # [num_geoms, num_faces, camera: pos3 view3 up3 right3 pixel_length2]
 GEOM_STRIDE = 48  # type, material, xform 3x4, inverse 3x4, inv_transpose 3x3, material 11
 FACE_STRIDE = 16  # geom, v0 3, e1 3, e2 3, unit normal 3, pad 3
 
-LAUNCHES = 0  # kernel launches since the last reset
+MAX_CLUSTERS = 1024  # K5 keeps one key per cluster in shared memory (csrc/bounce.cu)
+
+LAUNCHES = 0  # K1 launches since the last reset
+BOUNCE_LAUNCHES = 0  # K5 launches since the last reset
+
+
+def _uses_bvh(meta: SceneMeta) -> bool:
+    """Large meshes take the cluster walk (K5); small ones stay literal (K1)."""
+    small = meta.mega_faces and len(meta.mega_faces) == meta.num_faces
+    return bool(meta.has_obj and not small and meta.mesh_clusters)
 
 
 def supports_megakernel(meta: SceneMeta, options) -> bool:
     """Primitive scenes and meshes small enough to be listed whole in
-    ``meta.mega_faces``; no textures, no first-bounce cache. (The JAX
-    package also routes large meshes to its bounce kernel K5 under
-    ``bounce_megakernel``; that kernel is not ported yet.)"""
-    mesh_ok = (not meta.has_obj) or (
-        bool(meta.mega_faces) and len(meta.mega_faces) == meta.num_faces
+    ``meta.mega_faces`` (K1), and, only under the ``bounce_megakernel``
+    opt-in, large meshes through the cluster walk (K5); no textures, no
+    first-bounce cache."""
+    mesh_ok = (
+        (not meta.has_obj)
+        or (meta.mega_faces and len(meta.mega_faces) == meta.num_faces)
+        or (options.bounce_megakernel and bool(meta.mesh_clusters))
     )
     return bool(mesh_ok and not meta.has_textures and not options.first_bounce_cache_active)
 
@@ -69,15 +99,25 @@ def scene_record(meta: SceneMeta, camera: CameraParams) -> torch.Tensor:
     return torch.from_numpy(rec).to(camera.position.device)
 
 
+def _check_acc(acc: torch.Tensor, n: int, name: str) -> None:
+    if acc.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or (plain) CPU tensors, not {acc.device}")
+    if acc.dtype != torch.float32 or tuple(acc.shape) != (9, n) or not acc.is_contiguous():
+        raise ValueError(f"acc must be contiguous float32 [9, {n}], got "
+                         f"{acc.dtype} {tuple(acc.shape)}")
+
+
 def megakernel_accumulate_reference(
     dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
     start_iteration: int, num_iters: int, base_key: rng.Key,
 ) -> torch.Tensor:
-    """Plain version of K1: the wavefront ``render_sample`` per iteration,
-    accumulated into ``acc`` [9, N] in place."""
+    """Plain version of K1: the wavefront per iteration, with threefry
+    numbers whatever ``options.rng`` says (as K1 draws), accumulated into
+    ``acc`` [9, N] in place."""
+    options = dataclasses.replace(options, megakernel=False, rng="threefry")
     for i in range(num_iters):
         it = start_iteration + i
-        accumulate_sample(acc, render_sample(dev, meta, options, it, base_key), it)
+        accumulate_sample(acc, wavefront_sample(dev, meta, options, it, base_key), it)
     return acc
 
 
@@ -96,12 +136,8 @@ def megakernel_accumulate(
             dev, meta, options, acc, start_iteration, num_iters, base_key)
     width, height = meta.resolution
     n = width * height
-    if acc.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, not {acc.device}")
-    if acc.dtype != torch.float32 or tuple(acc.shape) != (9, n) or not acc.is_contiguous():
-        raise ValueError(f"acc must be contiguous float32 [9, {n}], got "
-                         f"{acc.dtype} {tuple(acc.shape)}")
-    if not supports_megakernel(meta, options):
+    _check_acc(acc, n, "K1")
+    if not supports_megakernel(meta, options) or _uses_bvh(meta):
         raise ValueError("scene/options not supported by K1 (see supports_megakernel)")
     if options.dir_aov:
         raise ValueError("K1 does not compute dir_aov")
@@ -128,3 +164,129 @@ def megakernel_accumulate(
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
     LAUNCHES += 1
     return acc
+
+
+def bvh_bounce_accumulate_reference(
+    dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
+    start_iteration: int, num_iters: int, base_key: rng.Key,
+) -> torch.Tensor:
+    """Plain version of K5: the wavefront per iteration, accumulated into
+    ``acc`` [9, N] in place. Its numbers are the plain versions of the
+    stream K5 draws (``prng.uniforms_mode`` of ``options.rng`` and
+    ``acc``'s device), and its scene query is
+    ``ops/trace.py::bvh_scene_hit_nearfar`` (``mesh_hit_reference``) over
+    ``face_plane`` (the TPU kernel walked a sublane-shifted copy,
+    ``face_shift``, which the port does not build)."""
+    n = meta.resolution[0] * meta.resolution[1]
+    k = num_rng_streams(meta.trace_depth)
+    mode = prng.uniforms_mode(options, acc.device)
+    fp, bounds = dev.face_plane, dev.cluster_bounds
+    everyone = torch.ones(n, dtype=torch.bool, device=acc.device)
+    query = lambda o, d, active=None: bvh_scene_hit_nearfar(
+        meta, fp, o, d, everyone if active is None else active, bounds)
+    for i in range(num_iters):
+        it = start_iteration + i
+        ikey = rng.iteration_key(base_key, it)
+        U = (prng.uniforms_reference(rng.randint(ikey), k, n, acc.device) if mode == "pallas"
+             else rng.uniform(ikey, (k, n), acc.device))
+        accumulate_sample(acc, trace_sample(dev, meta, options, it, U, query), it)
+    return acc
+
+
+def bvh_bounce_accumulate(
+    dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
+    start_iteration: int, num_iters: int, base_key: rng.Key,
+    record: torch.Tensor | None = None, visits: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Accumulate ``num_iters`` iterations from ``start_iteration`` into
+    ``acc`` [9, N] float32 (rows: color sum rgb, albedo rgb, normal xyz):
+    per iteration, the raygen uniforms (``iteration_uniforms``, 4 rows), the
+    camera rays, then one K5 launch (:func:`bounce_launch`). ``record`` is
+    :func:`scene_record`, built here when not given. ``visits`` (int32 [N]),
+    if given, gains the clusters each ray tested."""
+    if acc.device.type == "cpu":
+        return bvh_bounce_accumulate_reference(
+            dev, meta, options, acc, start_iteration, num_iters, base_key)
+    if num_iters < 0 or start_iteration < 1:
+        raise ValueError("need num_iters >= 0, start_iteration >= 1")
+    if record is None:
+        record = scene_record(meta, dev.camera)
+    n = meta.resolution[0] * meta.resolution[1]
+    for i in range(num_iters):
+        it = start_iteration + i
+        ikey = rng.iteration_key(base_key, it)
+        U = prng.iteration_uniforms(options, ikey, it, 4, n, acc.device)
+        o, d = generate_camera_rays(dev.camera, meta.resolution, options, U)
+        rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z])
+        bounce_launch(dev, meta, options, acc, rays, it, ikey, record, visits)
+    return acc
+
+
+def bounce_launch(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
+                  rays: torch.Tensor, iteration: int, ikey: rng.Key, record: torch.Tensor,
+                  visits: torch.Tensor | None = None) -> torch.Tensor:
+    """One K5 launch on the current stream: iteration ``iteration``'s bounce
+    loop from the camera rays ``rays`` [6, N] (origin xyz, direction xyz)
+    under the iteration key ``ikey``, added into ``acc`` [9, N] (CUDA
+    tensors only)."""
+    global BOUNCE_LAUNCHES
+    width, height = meta.resolution
+    n = width * height
+    if acc.device.type != "cuda":
+        raise ValueError("bounce_launch takes CUDA tensors; bvh_bounce_accumulate runs K5's "
+                         f"plain version for CPU tensors, got {acc.device}")
+    _check_acc(acc, n, "K5")
+    if not (supports_megakernel(meta, options) and _uses_bvh(meta)):
+        raise ValueError("scene/options not supported by K5 (see supports_megakernel, _uses_bvh)")
+    if options.dir_aov:
+        raise ValueError("K5 does not compute dir_aov")
+    if meta.trace_depth < 1 or iteration < 1:
+        raise ValueError("need trace_depth >= 1 and iteration >= 1")
+    fp, bounds = dev.face_plane, dev.cluster_bounds
+    num_clusters = bounds.shape[1]
+    if num_clusters > MAX_CLUSTERS or fp.shape[1] < num_clusters * 128:
+        raise ValueError(f"K5 takes at most {MAX_CLUSTERS} clusters of 128 faces, "
+                         f"got {num_clusters} over {fp.shape[1]} faces")
+    if tuple(rays.shape) != (6, n):
+        raise ValueError(f"rays must be [6, {n}], got {tuple(rays.shape)}")
+    for name, x in (("rays", rays), ("record", record), ("face_plane", fp), ("bounds", bounds)):
+        if x.device != acc.device or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {acc.device}")
+    if visits is not None and (visits.device != acc.device or visits.dtype != torch.int32
+                               or tuple(visits.shape) != (n,) or not visits.is_contiguous()):
+        raise ValueError(f"visits must be a contiguous int32 [{n}] tensor on {acc.device}")
+
+    from .._build import library
+
+    counter = prng.uniforms_mode(options, acc.device) == "pallas"
+    err = library().k5_bounce(
+        rays.data_ptr(), record.data_ptr(), fp.data_ptr(), bounds.data_ptr(), acc.data_ptr(),
+        visits.data_ptr() if visits is not None else None, n, meta.trace_depth, int(iteration),
+        int(counter), ikey[0], ikey[1], rng.randint(ikey) if counter else 0, fp.shape[1],
+        num_clusters, torch.cuda.current_stream(acc.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K5 launch failed: CUDA error {err}")
+    BOUNCE_LAUNCHES += 1
+    return acc
+
+
+def accumulate(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
+               start_iteration: int, num_iters: int, base_key: rng.Key,
+               record: torch.Tensor | None = None) -> torch.Tensor:
+    """Accumulate ``num_iters`` iterations into ``acc`` [9, N] through the
+    whole-iteration kernel the scene takes: K5 (:func:`bvh_bounce_accumulate`)
+    for a large mesh under ``bounce_megakernel``, else K1
+    (:func:`megakernel_accumulate`)."""
+    run = bvh_bounce_accumulate if _uses_bvh(meta) else megakernel_accumulate
+    return run(dev, meta, options, acc, start_iteration, num_iters, base_key, record=record)
+
+
+def megakernel_sample(dev: DeviceScene, meta: SceneMeta, options, iteration: int,
+                      base_key: rng.Key) -> SampleOutput:
+    """One iteration through :func:`accumulate` into a zeroed accumulator:
+    this sample's color * pi and, at iteration 1, its first-hit albedo and
+    normal (zeros otherwise), as ``render_sample`` returns them."""
+    n = meta.resolution[0] * meta.resolution[1]
+    acc = torch.zeros((9, n), dtype=torch.float32, device=dev.camera.position.device)
+    accumulate(dev, meta, options, acc, iteration, 1, base_key)
+    return SampleOutput(color=Vec3(*acc[0:3]), albedo=Vec3(*acc[3:6]), normal=Vec3(*acc[6:9]))

@@ -8,27 +8,34 @@ that is recomputed here from the same deterministic primary rays):
     one RNG block -> raygen -> bounce 0 (+ AOVs) -> bounces 1..depth-1
     -> finalGather (color * pi)
 
-The RNG block is ``jax.random.uniform(fold_in(key(seed), iteration),
-(4 + 3*depth, N))``, reproduced bit for bit by ``ops/rng.py``: rows 0-1 are
-the AA jitter, rows 2-3 the DoF lens sample, rows 4+3b .. 6+3b bounce b.
+The RNG block is ``ops/prng.py::iteration_uniforms(options, fold_in(key(seed),
+iteration), iteration, 4 + 3*depth, N)``: ``jax.random.uniform`` of that key,
+reproduced bit for bit by ``ops/rng.py``, or under ``rng`` "pallas"/"auto" off
+the CPU the K6 counter stream. Rows 0-1 are the AA jitter, rows 2-3 the DoF
+lens sample, rows 4+3b .. 6+3b bounce b.
 
-Every bounce queries the scene through ``ops/trace.py::intersect_soa`` with
-the options' mesh settings: on CUDA tensors a mesh of more than 256 faces
-goes through the mesh tiers' CUDA kernel (ops/mesh_hit.py), everything else
-is PyTorch. For primitive scenes and small meshes this is the plain version
-that the K1 CUDA kernel (render/megakernel.py) is held against.
+With ``options.megakernel`` on a scene the kernels support,
+``render_sample`` takes the JAX package's megakernel route: one iteration
+through K1 or, for large untextured meshes under ``bounce_megakernel``, K5
+(``render/megakernel.py::megakernel_sample``). Otherwise every bounce
+queries the scene through ``ops/trace.py::intersect_soa`` with the options'
+mesh settings: on CUDA tensors a mesh of more than 256 faces goes through
+the mesh tiers' CUDA kernel (ops/mesh_hit.py), everything else is PyTorch.
+The kernels' plain versions run ``trace_sample`` on their own uniforms and
+scene query.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
 from ..config import RenderOptions
 from ..ops import rng
-from ..ops.trace import intersect_soa
+from ..ops.prng import iteration_uniforms
+from ..ops.trace import HitSoA, intersect_soa
 from ..ops.vec3 import Vec3
 from ..scene.device_scene import DeviceScene, SceneMeta
 from .camera import generate_camera_rays
@@ -56,13 +63,35 @@ def render_sample(
 ) -> SampleOutput:
     if options.dir_aov:
         raise NotImplementedError("dir_aov is not ported yet")
-    width, height = meta.resolution
-    n = width * height
-    depth = meta.trace_depth
-    device = dev.camera.position.device
+    if options.megakernel:
+        from .megakernel import megakernel_sample, supports_megakernel
 
-    ikey = rng.iteration_key(base_key, iteration)
-    U = rng.uniform(ikey, (num_rng_streams(depth), n), device)
+        if supports_megakernel(meta, options):
+            return megakernel_sample(dev, meta, options, iteration, base_key)
+    return wavefront_sample(dev, meta, options, iteration, base_key)
+
+
+def wavefront_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions,
+                     iteration: int, base_key: rng.Key) -> SampleOutput:
+    """One iteration of the wavefront: ``iteration_uniforms`` and
+    ``intersect_soa`` with the options' mesh settings."""
+    n = meta.resolution[0] * meta.resolution[1]
+    U = iteration_uniforms(options, rng.iteration_key(base_key, iteration), iteration,
+                           num_rng_streams(meta.trace_depth), n, dev.camera.position.device)
+    query = lambda o, d, active=None: intersect_soa(
+        meta, dev, o, d, options.face_chunk, bounding_box=options.bounding_box,
+        mesh_pallas=options.mesh_pallas, mesh_sort=options.mesh_sort,
+        mesh_tier=options.mesh_tier, winner_table=options.winner_table, active=active)
+    return trace_sample(dev, meta, options, iteration, U, query)
+
+
+def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iteration: int,
+                 U: torch.Tensor, query: Callable[..., HitSoA]) -> SampleOutput:
+    """Raygen from the uniforms ``U`` [4 + 3*depth, N], then the bounce loop
+    over ``query(origin, direction, active=None)``, shading and the AOVs."""
+    n = meta.resolution[0] * meta.resolution[1]
+    depth = meta.trace_depth
+    device = U.device
 
     o, d = generate_camera_rays(dev.camera, meta.resolution, options, U)
     ones = torch.ones(n, dtype=torch.float32, device=device)
@@ -71,10 +100,6 @@ def render_sample(
         remaining=torch.full((n,), depth, dtype=torch.int32, device=device),
     )
 
-    query = lambda o, d, active=None: intersect_soa(
-        meta, dev, o, d, options.face_chunk, bounding_box=options.bounding_box,
-        mesh_pallas=options.mesh_pallas, mesh_sort=options.mesh_sort,
-        mesh_tier=options.mesh_tier, winner_table=options.winner_table, active=active)
     hit0 = query(o, d)
     zero = torch.zeros(n, dtype=torch.float32, device=device)
     if iteration == 1:

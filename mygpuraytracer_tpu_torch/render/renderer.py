@@ -7,10 +7,11 @@ accumulators and the iteration counter.
 
 The accumulators are one [9, N] float32 tensor on the device: rows 0-2 sum
 color * pi over iterations, rows 3-5 hold the first-hit albedo and rows 6-8
-the first-hit normal, both taken at iteration 1. ``step_many`` runs a batch
-of iterations through the K1 CUDA kernel in one launch when
-``options.megakernel`` is set and the scene is one K1 supports
-(render/megakernel.py); otherwise it runs the wavefront sample by sample
+the first-hit normal, both taken at iteration 1. With ``options.megakernel``
+on a scene the kernels support (render/megakernel.py), ``step_many`` runs a
+batch of iterations through the K1 CUDA kernel in one launch or, for a mesh
+of more than 256 faces under ``bounce_megakernel``, through K5, one launch
+per iteration. Otherwise it runs the wavefront sample by sample
 (render/pathtrace.py), where a mesh of more than 256 faces, textured or
 not, goes through the mesh tiers: their CUDA kernel on a CUDA device, its
 plain version on the CPU (ops/mesh_hit.py).
@@ -130,12 +131,12 @@ class Renderer:
         return self.step_many(1)
 
     def step_many(self, num_iters: int) -> int:
-        """Run ``num_iters`` MC iterations (one K1 launch when K1 applies)."""
+        """Run ``num_iters`` MC iterations (one K1 launch, or one K5 launch
+        per iteration, where the megakernel route applies)."""
         start = self.iteration + 1
         if self.use_megakernel:
-            megakernel.megakernel_accumulate(
-                self.dev, self.meta, self.options, self.acc, start, num_iters,
-                self.base_key, record=self.record)
+            megakernel.accumulate(self.dev, self.meta, self.options, self.acc, start, num_iters,
+                                  self.base_key, record=self.record)
         else:
             for it in range(start, start + num_iters):
                 out = render_sample(self.dev, self.meta, self.options, it, self.base_key)

@@ -16,7 +16,7 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "mygpuraytracer_tpu_torch"
 SOURCES = sorted(p.relative_to(REPO).as_posix()
-                 for p in [*PORT.rglob("*.py"), *PORT.glob("csrc/*.cu")]) + ["chip_smoke.py"]
+                 for p in [*PORT.rglob("*.py"), *PORT.glob("csrc/*.cu"), *PORT.glob("csrc/*.cuh")]) + ["chip_smoke.py"]
 MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
@@ -58,10 +58,12 @@ def test_source_names_no_jax(path):
 def test_scan_covers_the_mesh_path():
     for module in ("mygpuraytracer_tpu_torch.ops.mesh_hit", "mygpuraytracer_tpu_torch.ops.trace",
                    "mygpuraytracer_tpu_torch.scene.native_loader",
-                   "mygpuraytracer_tpu_torch.utils.png"):
+                   "mygpuraytracer_tpu_torch.utils.png", "mygpuraytracer_tpu_torch.ops.prng"):
         assert module in MODULES
     for path in ("mygpuraytracer_tpu_torch/csrc/mesh_hit.cu",
-                 "mygpuraytracer_tpu_torch/csrc/megakernel.cu"):
+                 "mygpuraytracer_tpu_torch/csrc/megakernel.cu",
+                 "mygpuraytracer_tpu_torch/csrc/bounce.cu", "mygpuraytracer_tpu_torch/csrc/prng.cu",
+                 "mygpuraytracer_tpu_torch/csrc/path.cuh", "mygpuraytracer_tpu_torch/csrc/mesh.cuh"):
         assert path in SOURCES
 
 
@@ -79,6 +81,10 @@ def test_entry_points_default_to_cuda():
     assert _default(build_device_scene, "device") == "cuda"
     assert _default(camera_params, "device") == "cuda"
     assert _default(load_denoiser, "device") == "cuda"
+    from mygpuraytracer_tpu_torch.ops import prng
+
+    assert _default(prng.pallas_uniforms, "device") == "cuda"
+    assert _default(prng.iteration_uniforms, "device") == "cuda"
     assert raytrace.parse_args(["cornell"]).device == "cuda"
     assert raytrace.parse_args(["cornell"]).megakernel == "auto"
     args = raytrace.parse_args(["scenes/cornellShipTex.txt"])

@@ -66,6 +66,7 @@ def host_k1(tmp_path_factory):
     (d / "k1.cpp").write_text(src)
     so = d / "libk1host.so"
     subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-I", str(REPO / "mygpuraytracer_tpu_torch/csrc"),
                     "-o", str(so), str(d / "k1.cpp")], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     restype, argtypes = _build.SIGNATURES["k1_accumulate"]

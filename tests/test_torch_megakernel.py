@@ -1,8 +1,8 @@
 """K1's wrapper, its plain version and its routing.
 
 On the CPU, ``megakernel_accumulate`` runs the plain version, which must
-equal the step-by-step wavefront accumulation bit for bit (same code, same
-order), including the rule that the albedo and normal AOVs are taken at
+equal the step-by-step wavefront accumulation and ``render_sample``'s
+megakernel route bit for bit (same code, same order), including the rule that the albedo and normal AOVs are taken at
 iteration 1 only. The CUDA kernel itself runs only on the card: the
 ``requires_cuda`` case holds it against the plain version there
 (chip_smoke.py's bars) and skips here.
@@ -23,7 +23,8 @@ from mygpuraytracer_tpu.scene.device_scene import build_device_scene as jax_buil
 from mygpuraytracer_tpu_torch.config import RenderOptions
 from mygpuraytracer_tpu_torch.ops import rng
 from mygpuraytracer_tpu_torch.render import Renderer, megakernel
-from mygpuraytracer_tpu_torch.render.pathtrace import render_sample
+from mygpuraytracer_tpu_torch.render.pathtrace import (accumulate_sample, render_sample,
+                                                       wavefront_sample)
 from mygpuraytracer_tpu_torch.scene import builtin, load_scene
 from mygpuraytracer_tpu_torch.scene.device_scene import build_device_scene
 
@@ -50,14 +51,11 @@ def test_accumulate_equals_plain_and_steps(start, count):
     acc_k = megakernel.megakernel_accumulate(dev, meta, opts, init.clone(), start, count, key)
     acc_p = megakernel.megakernel_accumulate_reference(dev, meta, opts, init.clone(), start,
                                                        count, key)
-    acc_s = init.clone()
+    acc_s, acc_r = init.clone(), init.clone()
     for it in range(start, start + count):
-        out = render_sample(dev, meta, opts, it, key)
-        acc_s[0:3] += torch.stack(out.color)
-        if it == 1:
-            acc_s[3:6] = torch.stack(out.albedo)
-            acc_s[6:9] = torch.stack(out.normal)
-    assert torch.equal(acc_k, acc_p) and torch.equal(acc_p, acc_s)
+        accumulate_sample(acc_s, wavefront_sample(dev, meta, opts, it, key), it)
+        accumulate_sample(acc_r, render_sample(dev, meta, opts, it, key), it)  # megakernel route
+    assert torch.equal(acc_k, acc_p) and torch.equal(acc_p, acc_s) and torch.equal(acc_s, acc_r)
     if start > 1:  # AOVs are only written at iteration 1
         assert torch.equal(acc_k[3:9], init[3:9])
     else:

@@ -72,6 +72,7 @@ def host_kernel(tmp_path_factory):
     (d / "mesh_hit.cpp").write_text(src)
     so = d / "libmeshhost.so"
     subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-I", str(REPO / "mygpuraytracer_tpu_torch/csrc"),
                     "-o", str(so), str(d / "mesh_hit.cpp")], check=True, capture_output=True,
                    text=True)
     lib = ctypes.CDLL(str(so))
