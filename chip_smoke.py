@@ -12,7 +12,11 @@ denoised with the U-Net. Phases, each printing one line with its elapsed
 seconds:
 
 1. device      -- the card's name and power limit (nvidia-smi); fails without CUDA
-2. build       -- one nvcc per csrc/*.cu, in parallel, into the gitignored build dir
+2. build       -- one nvcc per csrc/*.cu, in parallel, into the gitignored build
+                  dir; ptxas's registers and spills; the integer instructions
+                  of one threefry draw and one Philox call, counted in the
+                  SASS (cuobjdump) of probes built with the same flags and
+                  headers, and of K6's kernel in the built library
 3. k1_parity   -- K1 against its plain PyTorch version on cornell and
                   cornellGlass (800x800, depth 8, 16 iterations, same seed)
 4. render      -- K1's main path: Renderer.render_denoised, launch counts
@@ -28,16 +32,26 @@ seconds:
                   share and the kernels that take the device time
 7. prng        -- K6 against its plain version bit for bit at [4, N] and
                   [28, N] for three seeds; its values on the 2^-24 grid with
-                  U[0,1)'s mean and variance; K6 timed beside torch.rand
+                  U[0,1)'s mean and variance; K6 timed beside torch.rand in
+                  turns under three yardsticks: one call at a time (the
+                  kernels line's ms and library_ms: the wrapper's host cost
+                  included), bursts of back-to-back calls, and the device
+                  time of calls queued behind other work (the kernel alone);
+                  at [4, N] the host cost per call of the wrapper's pieces
 8. k5_parity   -- K5 against its plain version (the wavefront over the plain
                   walk) on the main path's inputs: cornellShip and the
                   open-sky shipOnly at 800x800, depth 8, seed 0, its first 2
                   iterations, under rng "threefry" and "auto"
 9. bounce_render -- the K5 main path: Renderer(megakernel, bounce_megakernel,
                   rng="auto").render_denoised of cornellShip with the K5 and
-                  K6 launches counted; K5 timed per launch with its bound;
-                  two iterations under torch.profiler; its image against the
-                  wavefront's (mesh kernel, same rng) over 4 iterations
+                  K6 launches counted; one counting launch per iteration
+                  (cluster visits, tree nodes, warp traversal iterations,
+                  warp bounce rounds, lanes of ended paths: nodes per
+                  ray-bounce, the traversal's lane use, the ended paths'
+                  share of the bounce rounds' lanes); K5 timed per launch
+                  with its bound; two iterations under torch.profiler; its
+                  image against the wavefront's (mesh kernel, same rng)
+                  over 4 iterations
 10. denoise    -- the fused denoise (bf16 net) against the float32 net on the
                   card, and the float32 net on the card against the CPU
 11. app        -- `python -m mygpuraytracer_tpu_torch.apps.raytrace` in a
@@ -56,6 +70,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -110,16 +125,24 @@ DENOISE_BF16_MAX_ABS = 0.25
 # summation order only (BASELINE.md fp32 bar, max relative error 1e-4).
 UNET_F32_MAX_REL = 1e-4
 
-# H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s, FP32 67 TFLOP/s
-# outside the tensor cores. INT32: 64 lanes per SM against 128 FP32 lanes
-# (Hopper white paper), so half the FP32 rate.
+# H100 SXM rates (NVIDIA data sheet, Hopper white paper): HBM 3.35 TB/s;
+# 128 FP32 lanes and 64 INT32 lanes per SM, 132 SMs, 1.98 GHz boost. The
+# counts below are instructions, one per lane: the data sheet's 67 TFLOP/s
+# counts an FMA as two operations, and the mesh face and slab tests
+# (csrc/mesh.cuh, __fmul_rn/__fadd_rn chains) never fuse, so FP32 runs at
+# 128 x 132 x 1.98e9 = 33.5e12 instructions/s and INT32 at 64 x 132 x
+# 1.98e9 = 16.7e12/s. (K1's and K5's primitive tests and shade may contract
+# a multiply-add pair into one FMA, so for those counts, which are all of
+# K1's and a small share of K5's, the bound may be up to 2x high.)
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-INT32_OPS_PER_S = 33.5e12
+FP32_OPS_PER_S = 33.5e12
+INT32_OPS_PER_S = 16.7e12
 # Operations per unit of K1 work, counted from csrc/megakernel.cu (one
 # arithmetic, compare or select instruction = 1; sqrt, rsqrt and a division
-# = 1; sinf/cosf/powf = 20 each, their polynomial length).
-INT_OPS_PER_DRAW = 122  # threefry2x32: 20 x (add, 2 shifts, or, xor) + 6 key adds x 2 + counter and bits
+# = 1; sinf/cosf/powf = 20 each, their polynomial length). The integer
+# instructions of one draw are counted by phase build from the SASS of the
+# built code (sass_draw_counts): threefry2x32 per draw, Philox4x32-10 per
+# call (4 draws).
 FP_OPS_PER_DRAW = 1
 FP_OPS_RAYGEN = 28
 FP_OPS_DOF = 75
@@ -164,6 +187,149 @@ def phase(name: str, **fields) -> None:
     print(f"[{time.perf_counter() - T0:8.2f}s] {name} {extra}", flush=True)
 
 
+# Probes of the per-draw integer work, built with the kernels' flags and
+# headers: D draws in a chain, so (count at 16 - count at 8) / 8 is one
+# draw's (threefry2x32 as K1 and K5 draw it) or one Philox call's (a new key
+# per call, as each K6 thread and each K5 group has) instructions, whatever
+# the frame around them.
+DRAW_PROBE = r"""
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+#include "path.cuh"
+template <int D>
+__global__ void probe_threefry(uint32_t k0, uint32_t k1, float* out, int n) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const Stream s{k0, k1, static_cast<uint64_t>(n), static_cast<uint64_t>(p)};
+  float acc = 0.0f;
+#pragma unroll
+  for (int r = 0; r < D; ++r) acc += s.uniform(r);
+  out[p] = acc;
+}
+template <int D>
+__global__ void probe_philox(uint32_t word, uint32_t* out) {
+  const uint32_t p = blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t acc = 0u;
+#pragma unroll
+  for (int g = 0; g < D; ++g) {
+    const Words4 w = counter_group(word + g, g, p);
+    acc += w.x + w.y + w.z + w.w;
+  }
+  out[p] = acc;
+}
+template __global__ void probe_threefry<8>(uint32_t, uint32_t, float*, int);
+template __global__ void probe_threefry<16>(uint32_t, uint32_t, float*, int);
+template __global__ void probe_philox<8>(uint32_t, uint32_t*);
+template __global__ void probe_philox<16>(uint32_t, uint32_t*);
+"""
+# SASS opcodes of the integer pipes (ALU and IMAD); conversions (I2F, F2I),
+# the uniform datapath (U*), loads, stores and control are not counted.
+INT_OPCODES = {"IADD3", "IMAD", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT", "IMNMX", "IABS",
+               "POPC", "FLO", "BREV", "SGXT", "BMSK", "VIADD", "VIMNMX", "IADD", "IMUL", "SHL",
+               "SHR", "LOP", "IDP", "ICMP"}
+SASS: dict = {}  # per-draw integer instruction counts, filled by phase build
+
+
+def sass_int_counts(path: str) -> dict:
+    """{kernel symbol: (integer instructions, all instructions)} from
+    ``cuobjdump -sass`` of a built library or cubin."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = [0, 0]
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and name is not None:
+            op = m.group(1).split(".")[0]
+            counts[name][1] += 1
+            counts[name][0] += op in INT_OPCODES
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def sass_draw_counts() -> dict:
+    """Integer instructions per draw from the SASS: threefry per draw and
+    Philox per call from DRAW_PROBE, and K6's whole kernel per draw from the
+    built library (csrc/prng.cu)."""
+    with tempfile.TemporaryDirectory() as d:
+        src, cubin = os.path.join(d, "probe.cu"), os.path.join(d, "probe.cubin")
+        with open(src, "w") as f:
+            f.write(DRAW_PROBE)
+        flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        subprocess.run([_build.find_nvcc(), *flags, "-cubin", "-I", _build.CSRC, "-o", cubin, src],
+                       capture_output=True, text=True, check=True, timeout=300)
+        probe = sass_int_counts(cubin)
+    pick = lambda counts, word: next(v for k, v in counts.items() if word in k)
+    per = lambda kind: (pick(probe, f"probe_{kind}ILi16")[0] - pick(probe, f"probe_{kind}ILi8")[0]) / 8
+    k6_lib = next(p for p in _build.build() if os.path.basename(p).startswith("libprng_"))
+    k6_int, k6_all = pick(sass_int_counts(k6_lib), "k6_kernel")
+    return {"threefry_int_per_draw": per("threefry"), "philox_int_per_call": per("philox"),
+            "k6_kernel_int": k6_int, "k6_kernel_instructions": k6_all}
+
+
+def host_us(fn, calls: int = 500, repeats: int = 3) -> float:
+    """Host time per call of fn() in microseconds: the median over
+    ``repeats`` of ``calls`` calls timed with the host's clock, the card
+    idle at the start; a few hundred launches fit in the stream's queue, so
+    the host does not wait for the card."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append(1e6 * (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def burst_ms(fn, calls: int = 20, repeats: int = 7) -> float:
+    """Median over ``repeats`` of the device time of ``calls`` back-to-back
+    calls of fn(), per call, by CUDA events: the rate a stream of such calls
+    runs at, host launch cost included where it exceeds the kernel's."""
+    return float(np.median([cuda_ms(lambda: [fn() for _ in range(calls)])
+                            for _ in range(repeats)])) / calls
+
+
+_BLOCKER: list = []  # bf16 operands of a ~5 ms matmul chain that keeps the card busy
+
+
+def queued_ms(fn, calls: int = 20, repeats: int = 5) -> float:
+    """Device time per call of fn()'s kernels alone: the calls are enqueued
+    behind a few ms of matmuls, so by the time the card reaches the first
+    event, all of them wait in the stream and run back to back; the median
+    over ``repeats`` of the events' time over ``calls``. The host's launch
+    cost is out of it as long as enqueueing ``calls`` calls takes less than
+    the matmuls (the host time is checked)."""
+    if not _BLOCKER:
+        _BLOCKER.append(torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16))
+    a = _BLOCKER[0]
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        block_start, block_end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        block_start.record()
+        for _ in range(4):
+            a @ a
+        block_end.record()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        end.synchronize()
+        if host_ms >= block_start.elapsed_time(block_end):
+            raise AssertionError(f"enqueueing {calls} calls took {host_ms:.2f} ms, longer than "
+                                 "the matmuls that hide it")
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def cuda_ms(fn, repeats: int = 1) -> float:
     """Mean device time of fn() over ``repeats`` calls, by CUDA events."""
     times = []
@@ -177,13 +343,15 @@ def cuda_ms(fn, repeats: int = 1) -> float:
     return float(np.mean(times))
 
 
-def ray_bounces(dev, meta, options, iterations) -> int:
-    """Ray-bounces (one nearest-hit test + one shade of a live path) that
-    ``iterations`` of this scene execute under ``options.rng``: the
-    data-dependent work K1 and K5 do."""
+def ray_bounces(dev, meta, options, iterations) -> tuple[int, int]:
+    """(ray-bounces, Philox calls) that ``iterations`` of this scene execute
+    under ``options.rng``: the data-dependent work K1 and K5 do. A
+    ray-bounce is one nearest-hit test and one shade of a live path; a path
+    of B bounces draws rows 4 .. 3B + 3, i.e. (3B + 3) // 4 Philox groups of
+    4 rows when K5 draws K6's stream."""
     n = meta.resolution[0] * meta.resolution[1]
     key = rng.make_key(SEED)
-    total = 0
+    total = calls = 0
     for it in iterations:
         U = prng.iteration_uniforms(options, rng.iteration_key(key, it), it,
                                     num_rng_streams(meta.trace_depth), n,
@@ -192,14 +360,18 @@ def ray_bounces(dev, meta, options, iterations) -> int:
         ones = torch.ones(n, device=o.x.device)
         s = PathStateSoA(o, d, Vec3(ones, ones, ones),
                          torch.full((n,), meta.trace_depth, dtype=torch.int32, device=o.x.device))
+        per_path = torch.zeros(n, dtype=torch.int64, device=o.x.device)
         for b in range(meta.trace_depth):
-            alive = int((s.remaining > 0).sum())
+            live = s.remaining > 0
+            alive = int(live.sum())
             if alive == 0:
                 break
             total += alive
+            per_path += live
             h = intersect_soa(meta, dev, s.origin, s.direction)
             s = shade_soa(meta, dev, s, h, U[4 + 3 * b], U[5 + 3 * b], U[6 + 3 * b])
-    return total
+        calls += int(((3 * per_path + 3) // 4).sum())
+    return total, calls
 
 
 def k1_ops(meta, options, samples: int, bounces: int) -> tuple[float, float]:
@@ -212,7 +384,7 @@ def k1_ops(meta, options, samples: int, bounces: int) -> tuple[float, float]:
     fp = samples * (FP_OPS_RAYGEN + (FP_OPS_DOF if options.depth_of_field else 0)
                     + FP_OPS_PER_DRAW * draws_per_sample)
     fp += bounces * (hit + FP_OPS_SHADE + 3 * FP_OPS_PER_DRAW)
-    integer = INT_OPS_PER_DRAW * (samples * draws_per_sample + 3 * bounces)
+    integer = SASS["threefry_int_per_draw"] * (samples * draws_per_sample + 3 * bounces)
     return float(fp), float(integer)
 
 
@@ -368,6 +540,13 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("    ptxas:", line.strip(), flush=True)
+    SASS.update(sass_draw_counts())
+    phase("build", sass_threefry_int_per_draw=SASS["threefry_int_per_draw"],
+          sass_philox_int_per_call=SASS["philox_int_per_call"],
+          sass_philox_int_per_draw=SASS["philox_int_per_call"] / 4,
+          sass_k6_kernel_int=SASS["k6_kernel_int"],
+          sass_k6_kernel_int_per_draw=SASS["k6_kernel_int"] / 4,
+          sass_k6_kernel_instructions=SASS["k6_kernel_instructions"])
 
     # ---- k1_parity -------------------------------------------------------------
     options = RenderOptions(megakernel=True)
@@ -430,7 +609,7 @@ def main() -> int:
         times.append(cuda_ms(run_k1))
     k1_ms = float(np.median(times[1:]))
     samples = RES * RES * PARITY_ITERS
-    bounces = ray_bounces(dev, meta, options, range(1, PARITY_ITERS + 1))
+    bounces, _ = ray_bounces(dev, meta, options, range(1, PARITY_ITERS + 1))
     fp_ops, int_ops = k1_ops(meta, options, samples, bounces)
     bytes_moved = 2 * acc.numel() * 4 + record.numel() * 4
     t_bytes = bytes_moved / HBM_BYTES_PER_S
@@ -600,23 +779,60 @@ def main() -> int:
     k6 = {}
     for k in (4, num_rng_streams(DEPTH)):
         run_k6 = lambda: prng.pallas_uniforms(PRNG_SEEDS[1], k, n, device)
-        run_k6()  # warm-up
-        ms = float(np.median([cuda_ms(run_k6) for _ in range(7)]))
+        rand = lambda: torch.rand(k, n, device=device)
+        run_k6(), rand()  # warm-up
+        # In turns (K6, torch.rand, torch.rand, K6), three yardsticks: one
+        # call at a time, timed alone with CUDA events, the wrapper's host
+        # cost included (the kernels line's "ms" and "library_ms", as in
+        # earlier runs); the rate of a burst of back-to-back calls; the
+        # device time of calls queued behind other work (the kernel alone).
+        times = {}
+        for who, fn in (("k6", run_k6), ("rand", rand), ("rand", rand), ("k6", run_k6)):
+            times.setdefault((who, "one"), []).append(
+                float(np.median([cuda_ms(fn) for _ in range(7)])))
+            times.setdefault((who, "burst"), []).append(burst_ms(fn, repeats=3))
+            times.setdefault((who, "device"), []).append(queued_ms(fn, repeats=3))
+        med = {key: float(np.median(v)) for key, v in times.items()}
+        span = {key: f"{min(v):.5f}-{max(v):.5f}" for key, v in times.items()}
+        ms, rand_ms = med["k6", "one"], med["rand", "one"]
+        dev_ms, rand_dev_ms = med["k6", "device"], med["rand", "device"]
+        if k == 4:  # where the host cost decides: K6's wrapper, piece by piece
+            buf = torch.empty((k, n), device=device)
+            handle, k6_c = _build.stream_handle(buf.device), _build.library().k6_uniforms
+            pieces = {"torch_rand": rand, "k6_wrapper": run_k6,
+                      "torch_empty": lambda: torch.empty((k, n), dtype=torch.float32, device=device),
+                      "stream_handle": lambda: _build.stream_handle(buf.device),
+                      "c_launch": lambda: k6_c(PRNG_SEEDS[1], buf.data_ptr(), k, n, handle)}
+            host = {name: [] for name in pieces}
+            for _ in range(2):
+                for name, fn in pieces.items():
+                    host[name].append(host_us(fn))
+            phase("prng", shape=f"{k}x{n}", **{f"host_us_{name}": f"{min(v):.2f}-{max(v):.2f}"
+                                               for name, v in host.items()})
         plain = lambda: prng.uniforms_reference(PRNG_SEEDS[1], k, n, device)
         plain()
         plain_ms = cuda_ms(plain)
-        rand = lambda: torch.rand(k, n, device=device)
-        rand()
-        rand_ms = float(np.median([cuda_ms(rand) for _ in range(7)]))
-        t_int = k * n * INT_OPS_PER_DRAW / INT32_OPS_PER_S
+        int_ops = -(-k // 4) * n * SASS["philox_int_per_call"]  # one Philox call per 4 rows
+        t_int = int_ops / INT32_OPS_PER_S
         t_bytes = 4 * k * n / HBM_BYTES_PER_S
         k6[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=rand_ms,
                      bound_ms=1e3 * max(t_int, t_bytes),
                      bound_by="operations" if t_int >= t_bytes else "bytes")
-        phase("prng", shape=f"{k}x{n}", k6_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}",
-              torch_rand_ms=f"{rand_ms:.4f}", int32_ops=f"{k * n * INT_OPS_PER_DRAW:.3e}",
-              bytes=4 * k * n, bound_ms=f"{k6[k]['bound_ms']:.4f}", bound_by=k6[k]["bound_by"],
-              of_bound=f"{k6[k]['bound_ms'] / ms:.3f}", vs_torch_rand=f"{ms / rand_ms:.2f}")
+        phase("prng", shape=f"{k}x{n}", k6_one_call_ms=f"{ms:.5f}",
+              k6_one_call_spread=span["k6", "one"], torch_rand_one_call_ms=f"{rand_ms:.5f}",
+              torch_rand_one_call_spread=span["rand", "one"], vs_torch_rand=f"{ms / rand_ms:.3f}",
+              k6_burst_ms=f"{med['k6', 'burst']:.5f}", k6_burst_spread=span["k6", "burst"],
+              torch_rand_burst_ms=f"{med['rand', 'burst']:.5f}",
+              torch_rand_burst_spread=span["rand", "burst"],
+              burst_vs_torch_rand=f"{med['k6', 'burst'] / med['rand', 'burst']:.3f}",
+              k6_device_ms=f"{dev_ms:.5f}", k6_device_spread=span["k6", "device"],
+              torch_rand_device_ms=f"{rand_dev_ms:.5f}",
+              torch_rand_device_spread=span["rand", "device"],
+              device_vs_torch_rand=f"{dev_ms / rand_dev_ms:.3f}",
+              plain_ms=f"{plain_ms:.2f}", int32_ops=f"{int_ops:.3e}", bytes=4 * k * n,
+              bound_ms=f"{k6[k]['bound_ms']:.5f}", bound_by=k6[k]["bound_by"],
+              of_bound=f"{k6[k]['bound_ms'] / ms:.3f}",
+              device_of_bound=f"{k6[k]['bound_ms'] / dev_ms:.3f}")
 
     # ---- k5_parity: K5 against its plain version on the main path's inputs ------------
     k5_parity = {}
@@ -692,31 +908,48 @@ def main() -> int:
         U = prng.iteration_uniforms(bounce_options, ikey, it, 4, n, device)
         o, d = generate_camera_rays(dev.camera, meta.resolution, bounce_options, U)
         all_rays.append((it, ikey, torch.stack([o.x, o.y, o.z, d.x, d.y, d.z])))
+    # One counting pass: clusters tested per ray, tree nodes, warp traversal
+    # iterations, warp bounce rounds, lanes of ended paths over those rounds.
     acc = torch.zeros((9, n), device=device)
     visits = torch.zeros(n, dtype=torch.int32, device=device)
+    stats = torch.zeros(megakernel.STATS, dtype=torch.int64, device=device)
     for it, ikey, rays in all_rays:
-        megakernel.bounce_launch(dev, meta, bounce_options, acc, rays, it, ikey, record, visits)
+        megakernel.bounce_launch(dev, meta, bounce_options, acc, rays, it, ikey, record, visits,
+                                 stats)
     run_k5 = lambda: [megakernel.bounce_launch(dev, meta, bounce_options, acc, rays, it, ikey,
                                                record) for it, ikey, rays in all_rays]
+    run_k5()  # warm-up
     k5_ms = float(np.median([cuda_ms(run_k5) for _ in range(3)])) / BOUNCE_ITERS
     k5_plain_ms = k5_parity["cornellShip", "auto"]["plain_ms"]  # per iteration, the same inputs
-    bounces = ray_bounces(dev, meta, bounce_options, range(1, BOUNCE_ITERS + 1))
-    fp_k1, int_ops = k1_ops(meta, bounce_options, 0, bounces)  # raygen runs outside K5
-    face_ops = float(visits.sum()) * 128 * FP_OPS_FACE_TEST
+    bounces, philox_calls = ray_bounces(dev, meta, bounce_options, range(1, BOUNCE_ITERS + 1))
+    fp_k1, _ = k1_ops(meta, bounce_options, 0, bounces)  # raygen runs outside K5
+    cluster_visits = int(visits.sum())
+    nodes, walk_iters, rounds, ended = stats.tolist()
+    face_ops = float(cluster_visits) * 128 * FP_OPS_FACE_TEST
     fp_ops = fp_k1 + face_ops
-    k5_bytes = BOUNCE_ITERS * 4 * (6 * n + 2 * 9 * n + record.numel() + dev.face_plane.numel()
-                                   + dev.cluster_bounds.numel())
+    int_ops = philox_calls * SASS["philox_int_per_call"]  # rng "auto": K6's stream in-kernel
+    k5_bytes = BOUNCE_ITERS * 4 * (6 * n + 2 * 9 * n + record.numel() + dev.face_gather.numel()
+                                   + dev.cluster_tree.numel())
     t_ops = max(fp_ops / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
     t_bytes = k5_bytes / HBM_BYTES_PER_S
     k5_bound_ms = 1e3 * max(t_ops, t_bytes) / BOUNCE_ITERS
     k5_bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    phase("bounce_render", k5_ms_per_launch=f"{k5_ms:.3f}", plain_ms_per_iter=f"{k5_plain_ms:.1f}",
-          ray_bounces=bounces, bounces_per_sample=f"{bounces / (n * BOUNCE_ITERS):.3f}",
-          cluster_visits=int(visits.sum()),
-          visits_per_ray_bounce=f"{float(visits.sum()) / max(bounces, 1):.3f}",
+    phase("bounce_render", k5_ms_per_launch=f"{k5_ms:.3f}", plain_ms_per_iter=f"{k5_plain_ms:.1f}", ray_bounces=bounces,
+          bounces_per_sample=f"{bounces / (n * BOUNCE_ITERS):.3f}", cluster_visits=cluster_visits,
+          visits_per_ray_bounce=f"{cluster_visits / max(bounces, 1):.3f}",
+          tree_nodes=nodes, nodes_per_ray_bounce=f"{nodes / max(bounces, 1):.3f}",
+          warp_walk_iterations=walk_iters, walk_lane_use=f"{nodes / max(32 * walk_iters, 1):.4f}",
+          warp_bounce_rounds=rounds, ended_lanes=ended,
+          ended_lane_share=f"{ended / max(32 * rounds, 1):.4f}",
+          live_lane_rounds=32 * rounds - ended,
+          philox_calls=philox_calls, draws=3 * bounces,
+          int32_per_draw=f"{int_ops / max(3 * bounces, 1):.2f}",
           fp32_ops=f"{fp_ops:.3e}", face_test_ops=f"{face_ops:.3e}", int32_ops=f"{int_ops:.3e}",
           bytes=k5_bytes, bound_ms_per_launch=f"{k5_bound_ms:.4f}", bound_by=k5_bound_by,
-          of_bound=f"{k5_bound_ms / k5_ms:.3f}")
+          of_bound=f"{k5_bound_ms / k5_ms:.4f}")
+    if not (0 < cluster_visits <= nodes <= 32 * walk_iters and 0 <= ended < 32 * rounds
+            and 32 * rounds - ended >= n * BOUNCE_ITERS):
+        raise AssertionError(f"K5's counters disagree: {cluster_visits} visits, {stats.tolist()}")
 
     # Where the K5 path's device time goes: two iterations under the profiler.
     r.reset()

@@ -44,7 +44,7 @@ SIGNATURES = {
     # csrc/prng.cu
     "k6_uniforms": (_I, [_I, _P, _I, _I, _P]),
     # csrc/bounce.cu
-    "k5_bounce": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _I, _I, _P]),
+    "k5_bounce": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _I, _I, _P]),
 }
 
 _lib = None
@@ -108,6 +108,17 @@ def build() -> list[str]:
         raise RuntimeError("\n".join(failed))
     build_seconds = time.perf_counter() - t0
     return outs
+
+
+def stream_handle(device) -> int:
+    """The cudaStream_t of the current CUDA stream on ``device`` (a CUDA
+    tensor's device, so its index is set), as an int, from torch's C
+    accessor: ``torch.cuda.current_stream(device)`` builds a Stream object
+    per call, which costs a small kernel (K6 at [4, N]) more than its
+    launch."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def library() -> types.SimpleNamespace:

@@ -1,9 +1,9 @@
 // Shared device code of the mesh kernels: the plane-form face test and the
-// cluster slab test over the 128-face Morton clusters of face_plane
-// (scene/device_scene.py), used by the mesh tiers' kernel (mesh_hit.cu) and
-// by K5's cluster walk (bounce.cu). Every operation is an _rn intrinsic in
-// the plain version's order (ops/mesh_hit.py), so no FMA contraction changes
-// a rounding. Include after <cuda_runtime.h> and <math_constants.h>.
+// box slab test over the 128-face Morton clusters of face_plane
+// (scene/device_scene.py) and the boxes of their tree, used by the mesh
+// tiers' kernel (mesh_hit.cu) and by K5's tree walk (bounce.cu). Every
+// operation is an _rn intrinsic in the plain version's order
+// (ops/mesh_hit.py), so no FMA contraction changes a rounding. Include after <cuda_runtime.h> and <math_constants.h>.
 
 #pragma once
 
@@ -25,21 +25,31 @@ __device__ __forceinline__ float dot_rn(float ax, float ay, float az, float bx, 
 
 __device__ __forceinline__ float clamp_eps(float x) { return fabsf(x) < DIR_EPS ? DIR_EPS : x; }
 
-// Slab test of cluster c (trace.py:746-783): true if the ray meets the box
-// at some t >= 0; *tin is where it enters. inv = 1 / clamp_eps(d) per axis.
-__device__ __forceinline__ bool cluster_slab(const Ray& r, float ix, float iy, float iz,
-                                             const float* bounds, int c, int num_clusters,
-                                             float* tin_out) {
-  const float t1 = __fmul_rn(__fsub_rn(bounds[c], r.ox), ix);
-  const float t2 = __fmul_rn(__fsub_rn(bounds[3 * num_clusters + c], r.ox), ix);
-  const float u1 = __fmul_rn(__fsub_rn(bounds[num_clusters + c], r.oy), iy);
-  const float u2 = __fmul_rn(__fsub_rn(bounds[4 * num_clusters + c], r.oy), iy);
-  const float v1 = __fmul_rn(__fsub_rn(bounds[2 * num_clusters + c], r.oz), iz);
-  const float v2 = __fmul_rn(__fsub_rn(bounds[5 * num_clusters + c], r.oz), iz);
+// Slab test of the box [x0, x1] x [y0, y1] x [z0, z1] (trace.py:746-783):
+// true if the ray meets it at some t >= 0; *tin is where it enters.
+// inv = 1 / clamp_eps(d) per axis.
+__device__ __forceinline__ bool box_slab(const Ray& r, float ix, float iy, float iz, float x0,
+                                         float y0, float z0, float x1, float y1, float z1,
+                                         float* tin_out) {
+  const float t1 = __fmul_rn(__fsub_rn(x0, r.ox), ix);
+  const float t2 = __fmul_rn(__fsub_rn(x1, r.ox), ix);
+  const float u1 = __fmul_rn(__fsub_rn(y0, r.oy), iy);
+  const float u2 = __fmul_rn(__fsub_rn(y1, r.oy), iy);
+  const float v1 = __fmul_rn(__fsub_rn(z0, r.oz), iz);
+  const float v2 = __fmul_rn(__fsub_rn(z1, r.oz), iz);
   const float tin = fmaxf(fmaxf(fminf(t1, t2), fminf(u1, u2)), fminf(v1, v2));
   const float tout = fminf(fminf(fmaxf(t1, t2), fmaxf(u1, u2)), fmaxf(v1, v2));
   *tin_out = tin;
   return tout >= fmaxf(tin, 0.0f);
+}
+
+// Slab test of cluster c, whose box is column c of bounds [6, num_clusters].
+__device__ __forceinline__ bool cluster_slab(const Ray& r, float ix, float iy, float iz,
+                                             const float* bounds, int c, int num_clusters,
+                                             float* tin_out) {
+  return box_slab(r, ix, iy, iz, bounds[c], bounds[num_clusters + c],
+                  bounds[2 * num_clusters + c], bounds[3 * num_clusters + c],
+                  bounds[4 * num_clusters + c], bounds[5 * num_clusters + c], tin_out);
 }
 
 // The cluster can hold a face nearer than the ray's best hit so far.

@@ -1,7 +1,8 @@
 // Shared device code of the whole-iteration kernels K1 (megakernel.cu) and
-// K5 (bounce.cu): the scene record's layout, float3 helpers, threefry2x32,
-// the random streams, the primitive intersection tests and one shading
-// round of a path (render/shade.py). Include after <cuda_runtime.h>,
+// K5 (bounce.cu) and of K6 (prng.cu): the scene record's layout, float3
+// helpers, threefry2x32 and Philox4x32-10, the random streams, the
+// primitive intersection tests and one shading round of a path
+// (render/shade.py). Include after <cuda_runtime.h>,
 // <math_constants.h> and <stdint.h>; everything lies in an anonymous
 // namespace, so each kernel source gets its own copy.
 
@@ -102,11 +103,36 @@ struct Stream {
   }
 };
 
+// ---- Philox4x32-10 (Salmon et al., SC'11; curand_philox4x32_x.h) ---------
+constexpr uint32_t PHILOX_M0 = 0xD2511F53u, PHILOX_M1 = 0xCD9E8D57u;
+constexpr uint32_t PHILOX_W0 = 0x9E3779B9u, PHILOX_W1 = 0xBB67AE85u;
+
+struct Words4 {
+  uint32_t x, y, z, w;
+};
+
+__device__ __forceinline__ Words4 philox4x32_10(uint32_t k0, uint32_t k1, Words4 c) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    if (i > 0) {
+      k0 += PHILOX_W0;
+      k1 += PHILOX_W1;
+    }
+    // 32x32->64 products: one IMAD.WIDE.U32 each
+    const uint64_t p0 = static_cast<uint64_t>(PHILOX_M0) * c.x;
+    const uint64_t p1 = static_cast<uint64_t>(PHILOX_M1) * c.z;
+    c = {static_cast<uint32_t>(p1 >> 32) ^ c.y ^ k0, static_cast<uint32_t>(p1),
+         static_cast<uint32_t>(p0 >> 32) ^ c.w ^ k1, static_cast<uint32_t>(p0)};
+  }
+  return c;
+}
+
 // K6's counter stream (ops/prng.py): element (row, col) of a [k, n] block
-// under an int32 seed is threefry2x32 keyed (0, seed * MIX + col / 2048) at
-// the counter (row, col % 2048); its bits y0 ^ y1 >> 8 times 2^-24 are a
-// uniform in [0, 1) on the 2^-24 grid. The value depends on (seed, row, col)
-// alone, not on the block's shape.
+// under an int32 seed is word row % 4 of Philox4x32-10 keyed (w, 0), with
+// w = seed * MIX + col / 2048, at the counter (row / 4, col % 2048, 0, 0);
+// its bits >> 8 times 2^-24 are a uniform in [0, 1) on the 2^-24 grid. The
+// value depends on (seed, row, col) alone, not on the block's shape, and one
+// Philox call gives the four rows of a group.
 constexpr uint32_t MIX = 0x9E3779B1u;
 constexpr uint32_t PRNG_BLOCK = 2048u;
 
@@ -114,10 +140,19 @@ __device__ __forceinline__ uint32_t stream_word(int32_t seed, uint32_t col) {
   return static_cast<uint32_t>(seed) * MIX + col / PRNG_BLOCK;
 }
 
-__device__ __forceinline__ float counter_uniform(uint32_t word, uint32_t row, uint32_t col) {
-  uint32_t x0 = row, x1 = col % PRNG_BLOCK;
-  threefry2x32(0u, word, x0, x1);
-  return static_cast<float>((x0 ^ x1) >> 8) * (1.0f / 16777216.0f);
+// The four words of rows 4 * group .. 4 * group + 3 at column col.
+__device__ __forceinline__ Words4 counter_group(uint32_t word, uint32_t group, uint32_t col) {
+  return philox4x32_10(word, 0u, {group, col % PRNG_BLOCK, 0u, 0u});
+}
+
+__device__ __forceinline__ float word_uniform(uint32_t bits) {
+  return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+// Word j (0..3) of a group, by selects (a dynamic register index would
+// spill the group to local memory).
+__device__ __forceinline__ uint32_t group_word(const Words4& g, uint32_t j) {
+  return j == 0 ? g.x : j == 1 ? g.y : j == 2 ? g.z : g.w;
 }
 
 // ---- intersection (ops/trace.py) ------------------------------------------

@@ -5,19 +5,22 @@
 // TPU's hardware PRNG with seed * 0x9E3779B1 + b for each 2048-column block
 // b and took (bits >> 8) * 2^-24 per element. The hardware generator cannot
 // be reproduced anywhere else, so the port defines the stream as a pure
-// counter function (path.cuh::counter_uniform, ops/prng.py): element
-// (row, col) is threefry2x32 keyed (0, seed * 0x9E3779B1 + col / 2048) at the
-// counter (row, col % 2048), its bits y0 ^ y1 >> 8 times 2^-24. The value
-// depends only on (seed, row, col), so K5 (bounce.cu) draws the same numbers
-// in-kernel at any (row, pixel) without this block.
+// counter function (path.cuh::counter_group, ops/prng.py): element
+// (row, col) is word row % 4 of Philox4x32-10 keyed (seed * 0x9E3779B1 +
+// col / 2048, 0) at the counter (row / 4, col % 2048, 0, 0), its bits >> 8
+// times 2^-24. The value depends only on (seed, row, col), so K5
+// (bounce.cu) draws the same numbers in-kernel at any (row, pixel) without
+// this block.
 //
-// Design: one thread per element, 256 threads per block, row-major over the
-// [k, n] output, so a warp writes 128 contiguous bytes.
+// Design: one thread per (column, group of 4 rows): one Philox call gives
+// the group's four rows, written with four stores that each cover 128
+// contiguous bytes across the warp; rows past k are masked. Grid: columns
+// in x, groups in y.
 //
-// Bound on an H100: operations. Each element is one threefry2x32 of 20
-// rounds (~105 INT32 operations on the half-rate integer pipe) against 4
-// bytes written; at [28, 640000] that is ~0.056 ms of integer work against
-// ~0.021 ms of bytes.
+// Bound on an H100: bytes. A Philox4x32-10 call is ~10 x (two 32x32->64
+// multiplies on the IMAD pipe, two 3-input xors) plus 9 key bumps, i.e.
+// ~15 integer instructions per float written, against 4 bytes per float:
+// at [28, 640000] ~0.016 ms of integer work against ~0.021 ms of bytes.
 //
 // Built by mygpuraytracer_tpu_torch/_build.py (nvcc, sm_90a); the C entry
 // point returns cudaGetLastError() after the launch.
@@ -31,22 +34,31 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int MAX_GRID_Y = 65535;
 
 __global__ void __launch_bounds__(THREADS)
     k6_kernel(int32_t seed, float* __restrict__ out, int k, int n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<int64_t>(k) * n) return;
-  const uint32_t row = static_cast<uint32_t>(i / n);
-  const uint32_t col = static_cast<uint32_t>(i % n);
-  out[i] = counter_uniform(stream_word(seed, col), row, col);
+  const int col = blockIdx.x * THREADS + threadIdx.x;
+  if (col >= n) return;
+  const uint32_t word = stream_word(seed, static_cast<uint32_t>(col));
+  const int groups = (k + 3) / 4;
+  for (int g = blockIdx.y; g < groups; g += gridDim.y) {
+    const Words4 w = counter_group(word, static_cast<uint32_t>(g), static_cast<uint32_t>(col));
+    float* o = out + static_cast<int64_t>(4 * g) * n + col;
+    const int rows = k - 4 * g;
+    o[0] = word_uniform(w.x);
+    if (rows > 1) o[n] = word_uniform(w.y);
+    if (rows > 2) o[2 * static_cast<int64_t>(n)] = word_uniform(w.z);
+    if (rows > 3) o[3 * static_cast<int64_t>(n)] = word_uniform(w.w);
+  }
 }
 
 }  // namespace
 
 extern "C" int k6_uniforms(int seed, float* out, int k, int n, void* stream) {
   if (k <= 0 || n <= 0) return 0;
-  const int64_t total = static_cast<int64_t>(k) * n;
-  const int blocks = static_cast<int>((total + THREADS - 1) / THREADS);
-  k6_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(seed, out, k, n);
+  const int groups = (k + 3) / 4;
+  const dim3 grid((n + THREADS - 1) / THREADS, groups < MAX_GRID_Y ? groups : MAX_GRID_Y);
+  k6_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(seed, out, k, n);
   return static_cast<int>(cudaGetLastError());
 }

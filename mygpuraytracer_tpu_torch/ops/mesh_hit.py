@@ -106,12 +106,12 @@ def mesh_hit(face_plane: torch.Tensor, bounds: torch.Tensor, rays: torch.Tensor,
     out = torch.empty((OUT_ROWS, n), dtype=torch.float32, device=rays.device)
     visits = torch.empty(n, dtype=torch.int32, device=rays.device) if with_visits else None
 
-    from .._build import library
+    from .._build import library, stream_handle
 
     err = library().mesh_hit(
         rays.data_ptr(), face_plane.data_ptr(), bounds.data_ptr(), out.data_ptr(),
         visits.data_ptr() if visits is not None else None, n, face_plane.shape[1],
-        num_clusters, torch.cuda.current_stream(rays.device).cuda_stream)
+        num_clusters, stream_handle(rays.device))
     if err != 0:
         raise RuntimeError(f"mesh kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -9,13 +9,16 @@ function of ``(seed, row, col)``:
 
 - column ``col`` lies in block ``b = col // 2048``, whose stream word is
   ``w = uint32(seed * 0x9E3779B1 + b)``;
-- element ``(row, col)`` takes the bits ``y0 ^ y1`` of
-  ``threefry2x32(key=(0, w), counter=(row, col % 2048))``;
-- its value is ``(bits >> 8) * 2^-24``: 24-bit mantissas in [0, 1).
+- element ``(row, col)`` takes word ``row % 4`` of
+  ``philox4x32_10(key=(w, 0), counter=(row // 4, col % 2048, 0, 0))``;
+- its value is ``(word >> 8) * 2^-24``: 24-bit mantissas in [0, 1).
 
-A value depends only on ``(seed, row, col)``, not on ``k`` or ``n``, so K5
-(``csrc/bounce.cu``) draws the same numbers in-kernel at any (row, pixel).
-Source of K6: ``csrc/prng.cu``.
+Philox4x32-10 is that of Salmon et al., *Parallel Random Numbers: As Easy
+as 1, 2, 3* (SC'11) and of the CUDA toolkit's ``curand_philox4x32_x.h``;
+one call gives four rows of a column. A value depends only on
+``(seed, row, col)``, not on ``k`` or ``n``, so K5 (``csrc/bounce.cu``)
+draws the same numbers in-kernel at any (row, pixel). Source of K6:
+``csrc/prng.cu``.
 
 ``pallas_uniforms`` launches K6 for a CUDA device and counts its launches in
 ``LAUNCHES``; for the CPU it runs the plain version, ``uniforms_reference``.
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from . import rng
 
 _BLK = 2048  # columns per stream word (the TPU kernel's grid block)
@@ -35,13 +39,40 @@ MIX = 0x9E3779B1  # golden-ratio odd multiplier of the seed
 LAUNCHES = 0  # kernel launches since the last reset
 
 
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # Weyl key increments
+PHILOX_ROUNDS = 10
+
+
+def _mulhilo(m: int, x):
+    """(hi, lo) words of the 64-bit product of the constant ``m`` and the
+    words ``x``, in int64 without overflow: x is split into 16-bit halves,
+    so every partial product stays below 2^49."""
+    p_lo, p_hi = m * (x & 0xFFFF), m * (x >> 16)
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (mid >> 32), mid & rng.MASK32
+
+
+def philox4x32_10(k0, k1, c0, c1, c2, c3):
+    """Philox4x32-10 on 32-bit words held in int64 tensors or Python ints
+    (all values in [0, 2**32)). Returns the four output words."""
+    for i in range(PHILOX_ROUNDS):
+        if i:
+            k0, k1 = (k0 + PHILOX_W[0]) & rng.MASK32, (k1 + PHILOX_W[1]) & rng.MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
 def uniforms_reference(seed: int, k: int, n: int, device="cpu") -> torch.Tensor:
     """Plain version of K6: the [k, n] float32 block of the counter stream."""
     col = torch.arange(n, dtype=torch.int64, device=device)
     word = ((int(seed) & rng.MASK32) * MIX + col // _BLK) & rng.MASK32
-    row = torch.arange(k, dtype=torch.int64, device=device)[:, None]
-    y0, y1 = rng.threefry2x32(0, word[None, :], row, (col % _BLK)[None, :])
-    return ((y0 ^ y1) >> 8).to(torch.float32) * 2.0**-24
+    group = torch.arange((k + 3) // 4, dtype=torch.int64, device=device)[:, None]
+    words = philox4x32_10(word[None, :], 0, group, (col % _BLK)[None, :], 0, 0)
+    rows = torch.stack(torch.broadcast_tensors(*words), dim=1).reshape(-1, n)[:k]
+    return (rows >> 8).to(torch.float32) * 2.0**-24
 
 
 def pallas_uniforms(seed: int, k: int, n: int, device="cuda") -> torch.Tensor:
@@ -59,11 +90,8 @@ def pallas_uniforms(seed: int, k: int, n: int, device="cuda") -> torch.Tensor:
     out = torch.empty((k, n), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-
-    from .._build import library
-
-    err = library().k6_uniforms(int(seed), out.data_ptr(), k, n,
-                                torch.cuda.current_stream(device).cuda_stream)
+    err = _build.library().k6_uniforms(int(seed), out.data_ptr(), k, n,
+                                       _build.stream_handle(out.device))
     if err != 0:
         raise RuntimeError(f"K6 launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -14,8 +14,10 @@ than 256 faces under ``RenderOptions(megakernel=True,
 bounce_megakernel=True)``. Per iteration: the raygen uniforms through
 ``ops/prng.py::iteration_uniforms`` (K6 under ``rng`` "pallas"/"auto" on
 CUDA), the camera rays in PyTorch, then one launch that runs the whole
-bounce loop with the near-to-far cluster walk over ``face_plane`` and adds
-into the accumulator, with K1's AOV rule. Source: ``csrc/bounce.cu``.
+bounce loop, each ray walking the cluster tree (``dev.cluster_tree``) on its
+own stack and the warp testing the clusters its rays reach
+(``dev.face_gather``), and adds into the accumulator, with K1's AOV rule.
+Source: ``csrc/bounce.cu``.
 
 Unlike the TPU kernels, which baked each scene into their programs and drew
 from the hardware PRNG, the CUDA kernels are generic programs: the scene
@@ -50,7 +52,10 @@ HEADER = 16  # [num_geoms, num_faces, camera: pos3 view3 up3 right3 pixel_length
 GEOM_STRIDE = 48  # type, material, xform 3x4, inverse 3x4, inv_transpose 3x3, material 11
 FACE_STRIDE = 16  # geom, v0 3, e1 3, e2 3, unit normal 3, pad 3
 
-MAX_CLUSTERS = 1024  # K5 keeps one key per cluster in shared memory (csrc/bounce.cu)
+MAX_TREE_DEPTH = 32  # K5's per-thread stack (csrc/bounce.cu MAX_STACK)
+# K5's counters: tree nodes, warp traversal iterations, warp bounce rounds,
+# lanes of ended paths over those rounds (csrc/bounce.cu).
+STATS = 4
 
 LAUNCHES = 0  # K1 launches since the last reset
 BOUNCE_LAUNCHES = 0  # K5 launches since the last reset
@@ -150,7 +155,7 @@ def megakernel_accumulate(
     if record.device != acc.device or record.dtype != torch.float32 or not record.is_contiguous():
         raise ValueError("record must be a contiguous float32 tensor on acc's device")
 
-    from .._build import library
+    from .._build import library, stream_handle
 
     dof = bool(options.depth_of_field and options.lens_radius > 0)
     err = library().k1_accumulate(
@@ -158,7 +163,7 @@ def megakernel_accumulate(
         int(start_iteration), int(num_iters), base_key[0], base_key[1],
         int(bool(options.antialiasing)), int(dof),
         float(options.lens_radius), float(options.focal_distance),
-        torch.cuda.current_stream(acc.device).cuda_stream,
+        stream_handle(acc.device),
     )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
@@ -222,13 +227,23 @@ def bvh_bounce_accumulate(
     return acc
 
 
+def tree_depth(num_clusters: int) -> int:
+    """Levels below the root of ``build_cluster_tree``'s tree, leaves
+    included: ceil(log2 C), the most entries K5's stack holds."""
+    return (num_clusters - 1).bit_length()
+
+
 def bounce_launch(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
                   rays: torch.Tensor, iteration: int, ikey: rng.Key, record: torch.Tensor,
-                  visits: torch.Tensor | None = None) -> torch.Tensor:
+                  visits: torch.Tensor | None = None,
+                  stats: torch.Tensor | None = None) -> torch.Tensor:
     """One K5 launch on the current stream: iteration ``iteration``'s bounce
     loop from the camera rays ``rays`` [6, N] (origin xyz, direction xyz)
     under the iteration key ``ikey``, added into ``acc`` [9, N] (CUDA
-    tensors only)."""
+    tensors only). ``visits`` (int32 [N]) gains the clusters each ray
+    tested; ``stats`` (int64 [STATS]) gains the tree nodes the rays
+    visited, the warp traversal iterations, the warp bounce rounds and the
+    lanes of ended paths over those rounds."""
     global BOUNCE_LAUNCHES
     width, height = meta.resolution
     n = width * height
@@ -242,28 +257,35 @@ def bounce_launch(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
         raise ValueError("K5 does not compute dir_aov")
     if meta.trace_depth < 1 or iteration < 1:
         raise ValueError("need trace_depth >= 1 and iteration >= 1")
-    fp, bounds = dev.face_plane, dev.cluster_bounds
-    num_clusters = bounds.shape[1]
-    if num_clusters > MAX_CLUSTERS or fp.shape[1] < num_clusters * 128:
-        raise ValueError(f"K5 takes at most {MAX_CLUSTERS} clusters of 128 faces, "
-                         f"got {num_clusters} over {fp.shape[1]} faces")
+    faces, tree = dev.face_gather, dev.cluster_tree
+    num_clusters = dev.cluster_bounds.shape[1]
+    depth = tree_depth(num_clusters)
+    if num_clusters < 2 or depth > MAX_TREE_DEPTH or tuple(tree.shape) != (num_clusters - 1, 16) \
+            or faces.shape[0] < num_clusters or tuple(faces.shape[1:]) != (4, 128, 4):
+        raise ValueError(f"K5 takes 2 to 2^{MAX_TREE_DEPTH} clusters of 128 faces, got "
+                         f"{num_clusters} clusters, tree {tuple(tree.shape)}, faces "
+                         f"{tuple(faces.shape)}")
     if tuple(rays.shape) != (6, n):
         raise ValueError(f"rays must be [6, {n}], got {tuple(rays.shape)}")
-    for name, x in (("rays", rays), ("record", record), ("face_plane", fp), ("bounds", bounds)):
+    for name, x in (("rays", rays), ("record", record), ("face_gather", faces), ("tree", tree)):
         if x.device != acc.device or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {acc.device}")
-    if visits is not None and (visits.device != acc.device or visits.dtype != torch.int32
-                               or tuple(visits.shape) != (n,) or not visits.is_contiguous()):
-        raise ValueError(f"visits must be a contiguous int32 [{n}] tensor on {acc.device}")
+    for name, x, dtype, shape in (("visits", visits, torch.int32, (n,)),
+                                  ("stats", stats, torch.int64, (STATS,))):
+        if x is not None and (x.device != acc.device or x.dtype != dtype
+                              or tuple(x.shape) != shape or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)} tensor on "
+                             f"{acc.device}")
 
-    from .._build import library
+    from .._build import library, stream_handle
 
     counter = prng.uniforms_mode(options, acc.device) == "pallas"
+    pointer = lambda x: x.data_ptr() if x is not None else None
     err = library().k5_bounce(
-        rays.data_ptr(), record.data_ptr(), fp.data_ptr(), bounds.data_ptr(), acc.data_ptr(),
-        visits.data_ptr() if visits is not None else None, n, meta.trace_depth, int(iteration),
-        int(counter), ikey[0], ikey[1], rng.randint(ikey) if counter else 0, fp.shape[1],
-        num_clusters, torch.cuda.current_stream(acc.device).cuda_stream)
+        rays.data_ptr(), record.data_ptr(), faces.data_ptr(), tree.data_ptr(), acc.data_ptr(),
+        pointer(visits), pointer(stats), n, meta.trace_depth, int(iteration), int(counter),
+        ikey[0], ikey[1], rng.randint(ikey) if counter else 0, num_clusters, depth,
+        stream_handle(acc.device))
     if err != 0:
         raise RuntimeError(f"K5 launch failed: CUDA error {err}")
     BOUNCE_LAUNCHES += 1

@@ -30,8 +30,14 @@ so the arrays equal its bit for bit. The packed-word tables hold uint32 bit
 patterns in int32 tensors (torch's bitwise ops take int32).
 
 The TPU's sublane-shifted copy of the faces (``face_shift``) is not built:
-it is a layout for the TPU's lane rolls, and the CUDA kernel reads
-``face_plane``.
+it is a layout for the TPU's lane rolls. Two layouts of the port's own serve
+K5's per-ray walk (csrc/bounce.cu): ``cluster_tree``, a balanced binary tree
+over the Morton-ordered cluster boxes (:func:`build_cluster_tree`), and
+``face_gather``, ``face_plane``'s rows 0-12 as float4s in per-cluster
+blocks, so that 32 lanes testing 32 consecutive faces read 512 contiguous
+bytes per float4. They are built only for the scenes K5 can take, meshes of
+more than ``MEGA_FACE_CAP`` faces without textures; elsewhere both are
+empty.
 """
 
 from __future__ import annotations
@@ -94,6 +100,16 @@ class DeviceScene(NamedTuple):
     face_ex_h: torch.Tensor  # u32-as-i32 [Fp, 6]: face_ex_t as f16 pairs (low half = even column)
     face_ex_o: torch.Tensor  # u32-as-i32 [Fp, 4]: 3 f16-pair uv words + tx|ty<<8|bx<<16|by<<24 (oct8)
     cluster_bounds: torch.Tensor  # f32[6, C]: min xyz, max xyz of each cluster
+    # Rows 0-12 of face_plane, zero-padded to 16, four rows to a float4 and
+    # one block per cluster: f32[Fp / 128, 4, 128, 4], [c, k, j, i] = row
+    # 4k + i of face c * 128 + j. f32[0, 4, 128, 4] unless K5 can take the
+    # scene (a mesh of more than MEGA_FACE_CAP faces, no textures).
+    face_gather: torch.Tensor
+    # build_cluster_tree: f32[max(C - 1, 0), 16], the interior nodes in
+    # preorder (root 0); per node the left child's box (min xyz, max xyz),
+    # the right child's box, then the two child links as int32 bits.
+    # f32[0, 16] unless K5 can take the scene, as face_gather.
+    cluster_tree: torch.Tensor
     mat_color: torch.Tensor  # f32[M,3]
     mat_spec_color: torch.Tensor  # f32[M,3]
     mat_spec_ex: torch.Tensor  # f32[M]
@@ -195,6 +211,43 @@ def build_clusters(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
         cmin[c] = pts.min(axis=0)
         cmax[c] = pts.max(axis=0)
     return order, cmin, cmax
+
+
+def build_cluster_tree(cmin: np.ndarray, cmax: np.ndarray) -> np.ndarray:
+    """A balanced binary tree over the clusters' index range, split at the
+    midpoint: the nodes, f32[max(C - 1, 0), 16].
+
+    The clusters are in Morton order, so an index range is a coherent piece
+    of the mesh. Node ``i`` (preorder, root 0) holds, in columns 0-5 and
+    6-11, the boxes of its left (lower) and right child: the exact float32
+    min/max of their clusters' boxes ``cmin``/``cmax`` [C, 3], so a child
+    that is one cluster carries that cluster's box bit for bit. Columns 12
+    and 13 hold the child links as int32 bits: an interior node's index, or
+    ``-1 - c`` for cluster ``c``; 14-15 are zero. With one cluster there is
+    no node and the root link is ``-1``. The levels below the root, leaves
+    included, are ``ceil(log2 C)`` (render/megakernel.py::tree_depth).
+    """
+    n = len(cmin)
+    nodes = np.zeros((max(n - 1, 0), 16), np.float32)
+    links = nodes.view(np.int32)
+    count = [0]
+
+    def build(lo: int, hi: int) -> int:
+        """The link of the subtree over clusters [lo, hi)."""
+        if hi - lo == 1:
+            return -1 - lo
+        i = count[0]
+        count[0] += 1
+        mid = (lo + hi) // 2
+        for col, (a, b) in ((0, (lo, mid)), (6, (mid, hi))):
+            nodes[i, col:col + 3] = cmin[a:b].min(axis=0)
+            nodes[i, col + 3:col + 6] = cmax[a:b].max(axis=0)
+        links[i, 12:14] = build(lo, mid), build(mid, hi)
+        return i
+
+    if n:
+        build(0, n)
+    return nodes
 
 
 def _pad_to(n: int, multiple: int) -> int:
@@ -438,6 +491,15 @@ def build_device_scene(
         if has_textures:
             face_tb[sl], face_plane_ex = _uv_tbn(
                 face_e1[sl], face_e2[sl], face_uv0[sl], face_uv1[sl], face_uv2[sl], Fp)
+    # K5's layouts, for the scenes it can take (render/megakernel.py::_uses_bvh,
+    # supports_megakernel).
+    face_gather = np.zeros((0, 4, CLUSTER_SIZE, 4), np.float32)
+    cluster_tree = np.zeros((0, 16), np.float32)
+    if num_faces > MEGA_FACE_CAP and not has_textures:
+        rows = np.zeros((16, Fp), np.float32)
+        rows[:13] = face_plane[:13]
+        face_gather = rows.reshape(4, 4, Fp // CLUSTER_SIZE, CLUSTER_SIZE).transpose(2, 0, 3, 1)
+        cluster_tree = build_cluster_tree(cluster_bounds[0:3].T, cluster_bounds[3:6].T)
     ex12 = np.ascontiguousarray(face_plane_ex[list(range(6)) + list(range(8, 14))].T)
     otx, oty = _oct8(ex12[:, 6:9])
     obx, oby = _oct8(ex12[:, 9:12])
@@ -469,7 +531,8 @@ def build_device_scene(
         face_geom=t(face_geom), face_tb=t(face_tb),
         face_plane=t(face_plane), face_plane_ex=t(face_plane_ex), face_ex_t=t(ex12),
         face_ex_h=words(_pack_f16_pairs(ex12)), face_ex_o=words(face_ex_o),
-        cluster_bounds=t(cluster_bounds),
+        cluster_bounds=t(cluster_bounds), face_gather=t(face_gather),
+        cluster_tree=t(cluster_tree),
         mat_color=t(mat_color), mat_spec_color=t(mat_spec_color),
         mat_spec_ex=t(mat_scalars[0]), mat_refl=t(mat_scalars[1]),
         mat_refr=t(mat_scalars[2]), mat_ior=t(mat_scalars[3]),

@@ -3,11 +3,16 @@
 Imports torch and the port only, so it runs on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_k5_cuda.py
 Without a CUDA device every case skips: the kernel has no CPU mode.
-Tolerance (K1's, chip_smoke.py's bars): under 1% of pixels whose mean color
-or first-hit AOVs differ by more than 1e-2, and rmse < 1e-3 over the other
-pixels. The kernel contracts multiply-adds in the primitive tests and shade
-and rounds rsqrt otherwise, and its walk picks among faces at exactly equal
-t in another order, so a few paths diverge.
+Tolerance (K1's, chip_smoke.py's bars), at 128x128 over 4 iterations:
+under 1% of pixels whose mean color or first-hit AOVs differ by more than
+1e-2, and rmse < 1e-3 over the other pixels. The kernel contracts
+multiply-adds in the primitive tests and shade and rounds rsqrt otherwise,
+and its tree walk picks among faces at exactly equal t in another order, so
+a few paths may diverge. The counting build changes nothing in the image,
+and the walk's counters (clusters tested per ray, tree nodes, warp
+traversal iterations, warp bounce rounds, lanes of ended paths) are
+consistent: every visit lies below a visited node, and every pixel's first
+bounce is a live lane-round.
 """
 
 import pathlib
@@ -17,12 +22,12 @@ import torch
 
 from mygpuraytracer_tpu_torch.config import RenderOptions
 from mygpuraytracer_tpu_torch.ops import prng, rng
-from mygpuraytracer_tpu_torch.render import Renderer, megakernel
+from mygpuraytracer_tpu_torch.render import Renderer, megakernel, pathtrace
 from mygpuraytracer_tpu_torch.scene import load_scene
 from mygpuraytracer_tpu_torch.scene.device_scene import build_device_scene
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-RES = 64
+RES = 128
 OPTIONS = RenderOptions(megakernel=True, bounce_megakernel=True)
 
 
@@ -51,9 +56,12 @@ def test_k5_matches_plain(name, mode):
     visits = torch.zeros(RES * RES, dtype=torch.int32, device="cuda")
     before = megakernel.BOUNCE_LAUNCHES
     megakernel.bvh_bounce_accumulate(dev, meta, options, acc_k, 1, iters, key, visits=visits)
+    uncounted = torch.zeros_like(acc_k)
+    megakernel.bvh_bounce_accumulate(dev, meta, options, uncounted, 1, iters, key)
+    assert torch.equal(uncounted, acc_k)  # the counting build (visits) gives the same image
     megakernel.bvh_bounce_accumulate_reference(dev, meta, options, acc_p, 1, iters, key)
     torch.cuda.synchronize()
-    assert megakernel.BOUNCE_LAUNCHES == before + iters
+    assert megakernel.BOUNCE_LAUNCHES == before + 2 * iters
     d = ((acc_k[0:3] - acc_p[0:3]) / iters).abs().amax(dim=0)
     agree = d <= 1e-2
     assert float((~agree).float().mean()) < 0.01
@@ -91,3 +99,27 @@ def test_k5_wrapper_rejects_bad_input():
         megakernel.bvh_bounce_accumulate(dev, meta, RenderOptions(megakernel=True),
                                          torch.zeros((9, RES * RES), device="cuda"), 1, 1,
                                          rng.make_key(0))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["cornellShip", "shipOnly"])
+def test_k5_counters(name):
+    _need_cuda()
+    r = Renderer(_scene(name), OPTIONS, device="cuda")
+    n = RES * RES
+    ikey = rng.iteration_key(r.base_key, 1)
+    U = prng.iteration_uniforms(OPTIONS, ikey, 1, 4, n, "cuda")
+    o, d = pathtrace.generate_camera_rays(r.dev.camera, r.meta.resolution, OPTIONS, U)
+    rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z])
+    acc = torch.zeros((9, n), device="cuda")
+    visits = torch.zeros(n, dtype=torch.int32, device="cuda")
+    stats = torch.zeros(megakernel.STATS, dtype=torch.int64, device="cuda")
+    megakernel.bounce_launch(r.dev, r.meta, OPTIONS, acc, rays, 1, ikey, r.record, visits, stats)
+    default = torch.zeros_like(acc)
+    megakernel.bounce_launch(r.dev, r.meta, OPTIONS, default, rays, 1, ikey, r.record)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, default)  # the counting build changes nothing
+    total = int(visits.sum())
+    nodes, walk_iters, rounds, ended = stats.tolist()
+    assert 0 < total <= nodes <= 32 * walk_iters  # every visit lies below a visited node
+    assert 0 <= ended < 32 * rounds and 32 * rounds - ended >= n  # every pixel's bounce 0 is live

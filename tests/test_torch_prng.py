@@ -6,11 +6,16 @@
   ``randint`` of the iteration key.
 - ``iteration_uniforms`` equals the JAX package's on the CPU bit for bit for
   every ``rng`` mode: both draw threefry there.
+- The port's Philox4x32-10 equals Random123's known-answer vectors
+  (``kat_vectors``: key 0 / counter 0, all ones, and the pi digits).
 - The plain K6 (``uniforms_reference``), whose TPU original drew from the
-  hardware PRNG and has no oracle: its values lie in [0, 1) on the 2^-24
-  grid, depend on (seed, row, col) only, pad past a multiple of 2048 as the
-  TPU kernel's blocks did, and have the mean and variance of U[0, 1) within
-  5 sigma.
+  hardware PRNG and has no oracle: element (row, col) is word row % 4 of
+  Philox4x32-10 keyed (uint32(seed * 0x9E3779B1 + col // 2048), 0) at the
+  counter (row // 4, col % 2048, 0, 0), its bits >> 8 times 2^-24 (checked
+  element by element in Python integers); its values lie in [0, 1) on the
+  2^-24 grid, depend on (seed, row, col) only, pad past a multiple of 2048
+  as the TPU kernel's blocks did, differ across blocks and across row
+  groups, and have the mean and variance of U[0, 1) within 5 sigma.
 """
 
 import numpy as np
@@ -86,6 +91,35 @@ def test_uniforms_mode_follows_the_jax_dispatch():
     assert prng.uniforms_mode(object(), "cuda") == "pallas"  # no rng: "auto"
 
 
+# Random123 kat_vectors, philox4x32 10: key words, counter words, output words.
+PHILOX_KAT = [
+    ((0x00000000, 0x00000000), (0x00000000, 0x00000000, 0x00000000, 0x00000000),
+     (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff, 0xffffffff), (0xffffffff, 0xffffffff, 0xffffffff, 0xffffffff),
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0xa4093822, 0x299f31d0), (0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+]
+
+
+@pytest.mark.parametrize("key,counter,want", PHILOX_KAT)
+def test_philox_known_answers(key, counter, want):
+    assert prng.philox4x32_10(*key, *counter) == want  # Python integers
+    words = prng.philox4x32_10(*(torch.tensor([x, x], dtype=torch.int64) for x in (*key, *counter)))
+    assert [w.tolist() for w in words] == [[x, x] for x in want]  # int64 tensors
+
+
+@pytest.mark.parametrize("seed", [0, -7, 2**31 - 1, -(2**31)])
+def test_plain_k6_element_is_its_philox_word(seed):
+    k, n = 11, 3 * 2048 + 17
+    u = prng.uniforms_reference(seed, k, n)
+    rs = np.random.default_rng(seed & 0xFFFF)
+    for row, col in zip(rs.integers(0, k, 40).tolist(), rs.integers(0, n, 40).tolist()):
+        w = ((seed & 0xFFFFFFFF) * 0x9E3779B1 + col // 2048) & 0xFFFFFFFF
+        word = prng.philox4x32_10(w, 0, row // 4, col % 2048, 0, 0)[row % 4]
+        assert float(u[row, col]) == (word >> 8) * 2.0**-24
+
+
 @pytest.mark.parametrize("seed", [0, 1, -3, 2**31 - 1])
 def test_plain_k6_on_the_grid(seed):
     u = prng.uniforms_reference(seed, 28, 5000)
@@ -110,10 +144,13 @@ def test_plain_k6_pads_past_whole_blocks(n):
 
 
 def test_plain_k6_blocks_are_distinct_streams():
-    u = prng.uniforms_reference(5, 2, 3 * 2048)
-    blocks = u.reshape(2, 3, 2048)
+    u = prng.uniforms_reference(5, 8, 3 * 2048)
+    blocks = u.reshape(8, 3, 2048)
     assert not torch.equal(blocks[:, 0], blocks[:, 1])
     assert not torch.equal(blocks[:, 1], blocks[:, 2])
+    groups = u.reshape(2, 4, 3 * 2048)  # rows 0-3 and 4-7: two Philox counters
+    assert not torch.equal(groups[0], groups[1])
+    assert len(set(u.reshape(-1).tolist())) > 0.99 * u.numel()
 
 
 def test_plain_k6_mean_and_variance():
