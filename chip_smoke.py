@@ -22,12 +22,21 @@ seconds:
 4. render      -- K1's main path: Renderer.render_denoised, launch counts
                   read around it; then K1 timed with CUDA events
 5. mesh_parity -- the mesh kernel against its plain version on the bounce-0
-                  and bounce-1 queries of cornellShip and cornellShipTex,
-                  under each tier name and winner table
+                  and bounce-1 queries of cornellShip and cornellShipTex:
+                  bitwise on every output (lanes that differ must be proven
+                  box-rounding lanes, ops/mesh_hit.py::box_rounding_lanes,
+                  and are counted), the winner's extras under each tier name
+                  and winner table, the counting build's outputs equal, and
+                  per ray necessary visits <= the kernel's <= the clusters
+                  entered below t_cap
 6. mesh_render -- the mesh main path: render_denoised of cornellShipTex and
                   cornellShip with the kernel's launches counted, the lists
-                  and conds tiers likewise, kernel against plain-tier images;
-                  then the kernel timed with CUDA events (mesh_time) and two
+                  and conds tiers likewise, kernel against plain-tier images,
+                  the oct winner table's image against f32's (recorded);
+                  then the kernel timed with CUDA events at each block size
+                  of the sweep, with the necessary, plain and kernel visits
+                  per live ray and the counting build's tree nodes,
+                  traversal lane use and leaf rounds (mesh_time), and two
                   iterations under torch.profiler (mesh_profile): device busy
                   share and the kernels that take the device time
 7. prng        -- K6 against its plain version bit for bit at [4, N] and
@@ -49,7 +58,8 @@ seconds:
                   warp bounce rounds, lanes of ended paths: nodes per
                   ray-bounce, the traversal's lane use, the ended paths'
                   share of the bounce rounds' lanes); K5 timed per launch
-                  with its bound; two iterations under torch.profiler; its
+                  with its bound (the necessary visits' face tests, its own
+                  visits' beside it); two iterations under torch.profiler; its
                   image against the wavefront's (mesh kernel, same rng)
                   over 4 iterations
 10. denoise    -- the fused denoise (bf16 net) against the float32 net on the
@@ -150,14 +160,18 @@ FP_OPS_BOX = 140
 FP_OPS_SPHERE = 120
 FP_OPS_FACE = 40
 FP_OPS_SHADE = 120  # diffuse bounce: cosine hemisphere (2 sqrt, sin, cos, 2 normalized crosses)
-# The mesh kernel, counted from csrc/mesh_hit.cu: a face test is A and B (2
+# The mesh kernel, counted from csrc/mesh.cuh: a face test is A and B (2
 # dot products, 10), B's clamp (3), t (2), u and v (2 x (2 dots + 3) = 26)
 # and the accept test (6 compares or adds + 4 ands) = 51. The bound counts
-# face tests only; a cluster's slab test (6 subtracts, 6 multiplies, 10
-# min/max, 3 compares and an and = 26) is this design's own schedule, and
-# its cost for the live rays is printed beside the bound, not in it.
+# the face tests of the necessary visits only: per ray, the clusters whose
+# slab test passes with an entry t below the ray's final t (the plain
+# result's t, or t_cap where no face won), which any correct walk tests,
+# whatever its order. A walk's own visits, its tree nodes (two slab tests
+# each) and its leaf rounds are the design's schedule, printed beside the
+# bound, not in it.
 FP_OPS_FACE_TEST = 51
-FP_OPS_SLAB = 26
+MESH_BLOCK_SIZES = (64, 128, 256)  # the mesh kernel's block-size sweep
+NECESSARY_CHUNK = 65536  # rays per chunk of the necessary-visit count
 # K6 against its plain version: bit for bit (integer arithmetic and one
 # exact conversion). Its values: on the 2^-24 grid in [0, 1), mean and
 # variance within 5 sigma of U[0,1)'s.
@@ -165,8 +179,10 @@ PRNG_SEEDS = (0, 1234567, -(2**31))
 # K5 against its plain version: K1's bars (PARITY_RMSE, PARITY_PIXEL_SHARE)
 # on the mean over the main path's first K5_PARITY_ITERS iterations, at its
 # 800x800. Besides K1's rounding (FMA contraction, rsqrt) the walk visits
-# clusters near to far where the plain version goes in ascending id, so
-# among faces at exactly equal t another may win. The plain walk syncs the
+# clusters near to far where the plain version goes in ascending id, so a
+# face whose t rounds below its own box's entry may be found by one walk
+# and not the other (csrc/mesh.cuh; exact-t ties go to the lowest face id
+# in both). The plain walk syncs the
 # host once per cluster and bounce (~3 s per 800x800 iteration on an H100),
 # so its cost grows with iterations, not pixels.
 K5_PARITY_ITERS = 2
@@ -343,15 +359,19 @@ def cuda_ms(fn, repeats: int = 1) -> float:
     return float(np.mean(times))
 
 
-def ray_bounces(dev, meta, options, iterations) -> tuple[int, int]:
-    """(ray-bounces, Philox calls) that ``iterations`` of this scene execute
-    under ``options.rng``: the data-dependent work K1 and K5 do. A
-    ray-bounce is one nearest-hit test and one shade of a live path; a path
-    of B bounces draws rows 4 .. 3B + 3, i.e. (3B + 3) // 4 Philox groups of
-    4 rows when K5 draws K6's stream."""
+def ray_bounces(dev, meta, options, iterations) -> tuple[int, int, int]:
+    """(ray-bounces, Philox calls, necessary cluster visits) that
+    ``iterations`` of this scene execute under ``options.rng``: the
+    data-dependent work K1 and K5 do. A ray-bounce is one nearest-hit test
+    and one shade of a live path; a path of B bounces draws rows 4 .. 3B + 3,
+    i.e. (3B + 3) // 4 Philox groups of 4 rows when K5 draws K6's stream.
+    The necessary visits (meshes that take the cluster walk, else 0): per
+    ray-bounce, the clusters whose box the ray enters below its nearest
+    hit's t."""
     n = meta.resolution[0] * meta.resolution[1]
     key = rng.make_key(SEED)
-    total = calls = 0
+    walk = meta.has_obj and dev.cluster_tree.shape[0] > 0
+    total = calls = necessary = 0
     for it in iterations:
         U = prng.iteration_uniforms(options, rng.iteration_key(key, it), it,
                                     num_rng_streams(meta.trace_depth), n,
@@ -369,9 +389,13 @@ def ray_bounces(dev, meta, options, iterations) -> tuple[int, int]:
             total += alive
             per_path += live
             h = intersect_soa(meta, dev, s.origin, s.direction)
+            if walk:
+                rays = torch.stack([*s.origin, *s.direction])[:, live]
+                necessary += int(mh.clusters_reached(dev.cluster_bounds, rays, h.t[live],
+                                                     NECESSARY_CHUNK).sum())
             s = shade_soa(meta, dev, s, h, U[4 + 3 * b], U[5 + 3 * b], U[6 + 3 * b])
         calls += int(((3 * per_path + 3) // 4).sum())
-    return total, calls
+    return total, calls, necessary
 
 
 def k1_ops(meta, options, samples: int, bounces: int) -> tuple[float, float]:
@@ -420,13 +444,18 @@ def recording_mesh_queries(keep: int = 2):
     calls = []
     orig = trace.mesh_hit
 
-    def record(fp, bounds, rays, with_visits=False):
+    def record(fp, bounds, rays, with_visits=False, **walk):
         if len(calls) < keep:
-            calls.append((fp, bounds, rays.clone()))
-        return orig(fp, bounds, rays, with_visits)
+            calls.append(MeshQuery(fp, bounds, walk["face_gather"], walk["tree"], rays.clone()))
+        return orig(fp, bounds, rays, with_visits, **walk)
 
     with patched(trace, "mesh_hit", record):
         yield calls
+
+
+def plain_mesh_hit(fp, bounds, rays, with_visits=False, **walk):
+    """The tiers' query through the plain version, in the kernel's place."""
+    return mh.mesh_hit_reference(fp, bounds, rays, with_visits)
 
 
 def refuse(*args, **kwargs):
@@ -446,11 +475,40 @@ def app_options(**changes) -> RenderOptions:
                                              winner_table="auto"), **changes)
 
 
-def compare_mesh_outputs(out_k, out_p, visits_k, visits_p) -> dict:
-    """Kernel outputs against the plain version's, per lane."""
+@dataclasses.dataclass
+class MeshQuery:
+    """One recorded mesh query: the scene's layouts and the rays [7, N]."""
+
+    fp: torch.Tensor
+    bounds: torch.Tensor
+    face_gather: torch.Tensor
+    tree: torch.Tensor
+    rays: torch.Tensor
+
+    def kernel(self, **kwargs):
+        return mh.mesh_hit(self.fp, self.bounds, self.rays, face_gather=self.face_gather,
+                           tree=self.tree, **kwargs)
+
+    def plain(self):
+        return mh.mesh_hit_reference(self.fp, self.bounds, self.rays)[0]
+
+    def reached(self, t_limit):
+        return mh.clusters_reached(self.bounds, self.rays, t_limit, NECESSARY_CHUNK)
+
+
+def compare_mesh_outputs(q: MeshQuery, out_k, out_p, visits_k) -> dict:
+    """Kernel outputs against the plain version's, per lane. A lane may
+    differ only as the box-rounding case (ops/mesh_hit.py::
+    box_rounding_lanes), proven and counted; and per ray the kernel's
+    visits lie between the necessary ones (entered below its final t) and
+    the clusters entered below t_cap."""
     hit_k, hit_p = out_k[4] >= 0, out_p[4] >= 0
     both = hit_k & hit_p
     rel = ((out_k[0] - out_p[0]).abs() / out_p[0].abs())[both]
+    differ = (out_k.view(torch.int32) != out_p.view(torch.int32)).any(dim=0)
+    proven = mh.box_rounding_lanes(q.fp, q.bounds, q.rays, out_k, out_p)
+    final = torch.minimum(mh.final_t(out_k, q.rays), mh.final_t(out_p, q.rays))
+    necessary, reachable = q.reached(final), q.reached(q.rays[6])
     return {
         "hit_miss_share": float((hit_k != hit_p).float().mean()),
         "t_max_rel": float(rel.max()) if rel.numel() else 0.0,
@@ -458,58 +516,56 @@ def compare_mesh_outputs(out_k, out_p, visits_k, visits_p) -> dict:
         "fid_share": float((out_k[7] != out_p[7]).float().mean()),
         "uv_share": float(((out_k[5] != out_p[5]) | (out_k[6] != out_p[6])).float().mean()),
         "bitwise": bool(torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))),
-        "visits_equal": bool(torch.equal(visits_k, visits_p)),
+        "differing_lanes": int(differ.sum()),
+        "box_rounding_lanes": int(proven.sum()),
+        "bitwise_but_box_rounding": bool(torch.equal(differ, proven)),
+        "visits_in_bounds": bool(((necessary <= visits_k) & (visits_k <= reachable)).all()),
     }
 
 
-def mesh_bound(fp, bounds, rays, visits) -> tuple[float, str, float, float]:
+def mesh_bound(q: MeshQuery, necessary: int) -> tuple[float, str, float, float]:
     """(bound ms, what bounds it, FP32 ops, bytes) of one mesh query: the
-    face tests of the clusters its rays visit (sum of visits x 128 x
-    FP_OPS_FACE_TEST), against each input read once and the [8, N] output
-    written once."""
-    ops = float(visits.sum()) * 128 * FP_OPS_FACE_TEST
-    nbytes = 4 * (rays.numel() + fp.numel() + bounds.numel() + mh.OUT_ROWS * rays.shape[1])
+    face tests of its necessary visits (necessary x 128 x FP_OPS_FACE_TEST),
+    against each input (rays, face_gather, tree) read once and the [8, N]
+    output written once."""
+    ops = float(necessary) * 128 * FP_OPS_FACE_TEST
+    nbytes = 4 * (q.rays.numel() + q.face_gather.numel() + q.tree.numel()
+                  + mh.OUT_ROWS * q.rays.shape[1])
     t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
 
 
-def block_visits(meta, rays, tile: int = 128, rows_per_chunk: int = 512) -> int:
-    """(128-ray block, cluster) pairs in which some ray of the block can
-    reach the cluster before its t_cap (``ops/trace.py::_cluster_visit_lists``,
-    the TPU rows tier's schedule): an upper bound on the blocks' visits in
-    the kernel, which prunes with each ray's running best."""
-    pad = (-rays.shape[1]) % tile
-    fill = torch.tensor([1e7, 1e7, 1e7, 1.0, 0.0, 0.0, 0.0], device=rays.device)[:, None]
-    padded = torch.cat([rays, fill.expand(7, pad)], dim=1)
-    total = 0
-    for s in range(0, padded.shape[1], tile * rows_per_chunk):
-        r = padded[:, s:s + tile * rows_per_chunk]
-        _, counts = trace._cluster_visit_lists(meta, Vec3(r[0], r[1], r[2]), Vec3(r[3], r[4], r[5]),
-                                               r[6], tile)
-        total += int(counts.sum())
-    return total
-
-
-def time_mesh_query(meta, fp, bounds, rays, **labels) -> dict:
-    """The kernel and its plain version timed with CUDA events on one
-    recorded query, with its bound; prints one mesh_time line."""
-    run = lambda: mh.mesh_hit(fp, bounds, rays)
-    run()  # warm-up
-    ms = float(np.median([cuda_ms(run) for _ in range(5)]))
-    mh.mesh_hit_reference(fp, bounds, rays)
-    plain_ms = cuda_ms(lambda: mh.mesh_hit_reference(fp, bounds, rays))
-    _, visits = mh.mesh_hit(fp, bounds, rays, with_visits=True)
-    bound_ms, bound_by, ops, nbytes = mesh_bound(fp, bounds, rays, visits)
-    live = int((rays[6] > 0).sum())
-    blocks = block_visits(meta, rays)
-    phase("mesh_time", **labels, ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.1f}",
-          bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, of_bound=f"{bound_ms / ms:.3f}",
-          visits=int(visits.sum()), visits_per_live_ray=f"{float(visits.sum()) / max(live, 1):.2f}",
-          block_visits_at_most=blocks,
-          lane_use_at_least=f"{float(visits.sum()) / max(blocks * 128, 1):.3f}",
-          fp32_ops=f"{ops:.3e}", bytes=int(nbytes),
-          slab_ops_live=f"{live * bounds.shape[1] * FP_OPS_SLAB:.3e}", library_ms="none")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+def time_mesh_query(q: MeshQuery, **labels) -> dict:
+    """The kernel (each block size of the sweep) and its plain version
+    timed with CUDA events on one recorded query, with its bound and the
+    counting build's counters; prints one mesh_time line."""
+    sweep = {}
+    for threads in MESH_BLOCK_SIZES:
+        run = lambda: q.kernel(threads=threads)
+        run()  # warm-up
+        sweep[threads] = float(np.median([cuda_ms(run) for _ in range(5)]))
+    ms = sweep[mh.THREADS]
+    out_p = q.plain()  # also the warm-up
+    plain_ms = cuda_ms(q.plain)
+    stats = torch.zeros(mh.STATS, dtype=torch.int64, device=q.rays.device)
+    _, visits = q.kernel(with_visits=True, stats=stats)
+    _, visits_p = mh.mesh_hit_reference(q.fp, q.bounds, q.rays, with_visits=True)
+    necessary = int(q.reached(mh.final_t(out_p, q.rays)).sum())
+    bound_ms, bound_by, ops, nbytes = mesh_bound(q, necessary)
+    nodes, walk_iters, leaf_rounds = stats.tolist()
+    live = max(int((q.rays[6] > 0).sum()), 1)
+    per_live = lambda x: f"{float(x) / live:.3f}"
+    phase("mesh_time", **labels, ms=f"{ms:.4f}", threads=mh.THREADS,
+          **{f"ms_{t}": f"{v:.4f}" for t, v in sweep.items()}, plain_ms=f"{plain_ms:.1f}",
+          bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, of_bound=f"{bound_ms / ms:.4f}",
+          live_rays=live, necessary_per_live_ray=per_live(necessary),
+          plain_visits_per_live_ray=per_live(visits_p.sum()),
+          kernel_visits_per_live_ray=per_live(visits.sum()),
+          nodes_per_live_ray=per_live(nodes), walk_lane_use=f"{nodes / max(32 * walk_iters, 1):.4f}",
+          leaf_rounds_per_live_ray=per_live(leaf_rounds),
+          holders_per_leaf_round=f"{float(visits.sum()) / max(leaf_rounds, 1):.3f}",
+          fp32_ops=f"{ops:.3e}", bytes=int(nbytes), library_ms="none")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, sweep=sweep)
 
 
 def compare_images(a: np.ndarray, b: np.ndarray) -> dict:
@@ -609,7 +665,7 @@ def main() -> int:
         times.append(cuda_ms(run_k1))
     k1_ms = float(np.median(times[1:]))
     samples = RES * RES * PARITY_ITERS
-    bounces, _ = ray_bounces(dev, meta, options, range(1, PARITY_ITERS + 1))
+    bounces, _, _ = ray_bounces(dev, meta, options, range(1, PARITY_ITERS + 1))
     fp_ops, int_ops = k1_ops(meta, options, samples, bounces)
     bytes_moved = 2 * acc.numel() * 4 + record.numel() * 4
     t_bytes = bytes_moved / HBM_BYTES_PER_S
@@ -623,40 +679,47 @@ def main() -> int:
           launches_per_iter_batch=1)
 
     # ---- mesh_parity -------------------------------------------------------------
-    mesh_calls, mesh_metas, mesh_max_abs = {}, {}, 0.0
+    mesh_calls, mesh_max_abs = {}, 0.0
     for name in MESH_SCENES:
         r = Renderer(mesh_scene(name), app_options(), seed=SEED, device=device)
         dev, meta = r.dev, r.meta
-        mesh_metas[name] = meta
         with recording_mesh_queries() as calls:
             render_sample(dev, meta, r.options, 1, r.base_key)
         calls = calls[:2]  # bounce 0: the camera rays; bounce 1: after one shade
         with_tb = any(g.bump > 0 for g in meta.geoms)
         tables = ({"f32": dev.face_ex_t, "f16": dev.face_ex_h, "oct": dev.face_ex_o}
                   if meta.has_textures else {"f32": dev.face_ex_t})
-        for label, (fp, bounds, rays) in zip(("bounce0", "bounce1"), calls):
-            out_k, visits_k = mh.mesh_hit(fp, bounds, rays, with_visits=True)
-            out_p, visits_p = mh.mesh_hit_reference(fp, bounds, rays, with_visits=True)
-            cmp = compare_mesh_outputs(out_k, out_p, visits_k, visits_p)
+        for label, q in zip(("bounce0", "bounce1"), calls):
+            out_k, _ = q.kernel()
+            out_c, visits_k = q.kernel(with_visits=True)  # the counting build
+            out_p = q.plain()
+            cmp = compare_mesh_outputs(q, out_k, out_p, visits_k)
             same = (out_k == out_p) | (out_k.isnan() & out_p.isnan())
             mesh_max_abs = max(mesh_max_abs, float(torch.where(
                 same, 0.0, (out_k - out_p).abs()).nan_to_num(nan=float("inf")).max()))
-            extras = {"rows": [(trace._winner_extras(out_k, tab, meta.has_textures, with_tb),
-                                trace._winner_extras(out_p, tab, meta.has_textures, with_tb))
-                               for tab in tables.values()],
-                      "lists/conds": [(
-                          trace._plane_ex_extras(out_k, dev.face_plane_ex, meta.has_textures, with_tb),
-                          trace._plane_ex_extras(out_p, dev.face_plane_ex, meta.has_textures, with_tb))]}
-            extras_equal = all(torch.equal(a, b) for pairs in extras.values()
-                               for ek, ep in pairs for a, b in zip(ek, ep))
-            live = int((rays[6] > 0).sum())
-            phase("mesh_parity", scene=name, batch=label, rays=rays.shape[1], live=live,
-                  mesh_winners=int((out_k[4] >= 0).sum()), visits=int(visits_k.sum()),
-                  tables="/".join(tables), extras_equal=extras_equal,
+            # The winner's texcoord and TBN, from each table the tiers read,
+            # on the lanes whose outputs are bitwise (all but proven
+            # box-rounding ones, whose winner differs).
+            agree = (out_k.view(torch.int32) == out_p.view(torch.int32)).all(dim=0)
+            extras = [(trace._winner_extras(out_k, tab, meta.has_textures, with_tb),
+                       trace._winner_extras(out_p, tab, meta.has_textures, with_tb))
+                      for tab in tables.values()]
+            extras.append((
+                trace._plane_ex_extras(out_k, dev.face_plane_ex, meta.has_textures, with_tb),
+                trace._plane_ex_extras(out_p, dev.face_plane_ex, meta.has_textures, with_tb)))
+            extras_equal = all(torch.equal(a[agree], b[agree])
+                               for ek, ep in extras for a, b in zip(ek, ep))
+            counting_equal = bool(torch.equal(out_c.view(torch.int32), out_k.view(torch.int32)))
+            phase("mesh_parity", scene=name, batch=label, rays=q.rays.shape[1],
+                  live=int((q.rays[6] > 0).sum()), mesh_winners=int((out_k[4] >= 0).sum()),
+                  visits=int(visits_k.sum()), tables="/".join(tables),
+                  extras_equal=extras_equal, counting_build_equal=counting_equal,
                   **{k: (f"{v:.3e}" if isinstance(v, float) else v) for k, v in cmp.items()})
-            if not (cmp["bitwise"] and cmp["visits_equal"] and extras_equal):
+            if not (cmp["bitwise_but_box_rounding"] and cmp["visits_in_bounds"]
+                    and counting_equal and extras_equal):
                 raise AssertionError(f"mesh kernel disagrees with its plain version on {name} "
-                                     f"{label}: {cmp}, extras_equal={extras_equal}")
+                                     f"{label}: {cmp}, extras_equal={extras_equal}, "
+                                     f"counting_build_equal={counting_equal}")
         mesh_calls[name] = calls
 
     # ---- mesh_render: the mesh main path, counted ----------------------------------
@@ -708,29 +771,39 @@ def main() -> int:
                                  f"{queries[0]} queries")
         phase("mesh_render", scene="cornellShipTex", tier=tier, iterations=MESH_TIER_ITERS,
               mesh_launches=mesh_launches[tier], mesh_queries=queries[0])
-    # The same 4 iterations through the kernel and through the plain tier.
+    # The same 4 iterations through the kernel and through the plain tier,
+    # then through the kernel with the f32 winner table instead of oct.
     images = []
-    for query in (mh.mesh_hit, mh.mesh_hit_reference):
-        r = Renderer(mesh_scene("cornellShipTex"), app_options(), seed=SEED, device=device)
+    for query, table in ((mh.mesh_hit, "auto"), (plain_mesh_hit, "auto"), (mh.mesh_hit, "f32")):
+        r = Renderer(mesh_scene("cornellShipTex"), app_options(winner_table=table), seed=SEED,
+                     device=device)
         with patched(trace, "mesh_hit", query):
             images.append(r.render(iterations=MESH_IMAGE_ITERS, batch=MESH_IMAGE_ITERS))
-    img_cmp = compare_images(*images)
+        if (table == "auto") != (r.options.winner_table == "oct"):
+            raise AssertionError(f"winner table {r.options.winner_table} for {table!r}")
+    img_cmp = compare_images(images[0], images[1])
     phase("mesh_render", check="kernel_vs_plain_tier", iterations=MESH_IMAGE_ITERS,
-          equal=bool(np.array_equal(*images)), **{k: f"{v:.3e}" for k, v in img_cmp.items()})
+          equal=bool(np.array_equal(images[0], images[1])),
+          **{k: f"{v:.3e}" for k, v in img_cmp.items()})
     if img_cmp["rmse_agreeing"] >= PARITY_RMSE or img_cmp["share_gt_1e-2"] >= PARITY_PIXEL_SHARE:
         raise AssertionError(f"kernel and plain-tier images disagree: {img_cmp}")
+    table_cmp = compare_images(images[0], images[2])  # recorded only: no bar
+    phase("mesh_render", check="oct_vs_f32_winner_table", scene="cornellShipTex",
+          iterations=MESH_IMAGE_ITERS, equal=bool(np.array_equal(images[0], images[2])),
+          **{k: f"{v:.3e}" for k, v in table_cmp.items()})
+    if not np.isfinite(images[2]).all():
+        raise AssertionError("the f32 winner table's image is not finite")
 
     # The kernel timed with CUDA events on the main path's own queries: the
     # rows tier's on both scenes, and each other tier's on its own run's.
     mesh_times = {}
     for name in MESH_SCENES:
-        for label, (fp, bounds, rays) in zip(("bounce0", "bounce1"), mesh_calls[name]):
-            mesh_times[name, "rows", label] = time_mesh_query(
-                mesh_metas[name], fp, bounds, rays, scene=name, tier="rows", batch=label)
+        for label, q in zip(("bounce0", "bounce1"), mesh_calls[name]):
+            mesh_times[name, "rows", label] = time_mesh_query(q, scene=name, tier="rows",
+                                                              batch=label)
     for tier, calls in tier_calls.items():
         mesh_times["cornellShipTex", tier, "bounce1"] = time_mesh_query(
-            mesh_metas["cornellShipTex"], *calls[1], scene="cornellShipTex", tier=tier,
-            batch="bounce1")
+            calls[1], scene="cornellShipTex", tier=tier, batch="bounce1")
 
     # ---- mesh_profile: where the mesh main path's device time goes ------------------
     r = Renderer(mesh_scene("cornellShipTex"), app_options(), seed=SEED, device=device)
@@ -921,22 +994,33 @@ def main() -> int:
     run_k5()  # warm-up
     k5_ms = float(np.median([cuda_ms(run_k5) for _ in range(3)])) / BOUNCE_ITERS
     k5_plain_ms = k5_parity["cornellShip", "auto"]["plain_ms"]  # per iteration, the same inputs
-    bounces, philox_calls = ray_bounces(dev, meta, bounce_options, range(1, BOUNCE_ITERS + 1))
+    bounces, philox_calls, necessary = ray_bounces(dev, meta, bounce_options,
+                                                   range(1, BOUNCE_ITERS + 1))
     fp_k1, _ = k1_ops(meta, bounce_options, 0, bounces)  # raygen runs outside K5
     cluster_visits = int(visits.sum())
     nodes, walk_iters, rounds, ended = stats.tolist()
-    face_ops = float(cluster_visits) * 128 * FP_OPS_FACE_TEST
-    fp_ops = fp_k1 + face_ops
     int_ops = philox_calls * SASS["philox_int_per_call"]  # rng "auto": K6's stream in-kernel
     k5_bytes = BOUNCE_ITERS * 4 * (6 * n + 2 * 9 * n + record.numel() + dev.face_gather.numel()
                                    + dev.cluster_tree.numel())
-    t_ops = max(fp_ops / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
     t_bytes = k5_bytes / HBM_BYTES_PER_S
-    k5_bound_ms = 1e3 * max(t_ops, t_bytes) / BOUNCE_ITERS
-    k5_bound_by = "operations" if t_ops >= t_bytes else "bytes"
+
+    def k5_bound(face_visits):
+        """(ms per launch, what bounds it, FP32 ops) with the face tests of
+        ``face_visits`` cluster visits over the 16 launches."""
+        fp = fp_k1 + float(face_visits) * 128 * FP_OPS_FACE_TEST
+        t_ops = max(fp / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
+        return (1e3 * max(t_ops, t_bytes) / BOUNCE_ITERS,
+                "operations" if t_ops >= t_bytes else "bytes", fp)
+
+    # The kernels line takes the necessary-visit bound, which no walk's order
+    # moves; K5's own-visit bound is printed beside it.
+    k5_bound_ms, k5_bound_by, fp_ops = k5_bound(necessary)
+    own_bound_ms, _, own_fp_ops = k5_bound(cluster_visits)
     phase("bounce_render", k5_ms_per_launch=f"{k5_ms:.3f}", plain_ms_per_iter=f"{k5_plain_ms:.1f}", ray_bounces=bounces,
           bounces_per_sample=f"{bounces / (n * BOUNCE_ITERS):.3f}", cluster_visits=cluster_visits,
           visits_per_ray_bounce=f"{cluster_visits / max(bounces, 1):.3f}",
+          necessary_visits=necessary,
+          necessary_per_ray_bounce=f"{necessary / max(bounces, 1):.3f}",
           tree_nodes=nodes, nodes_per_ray_bounce=f"{nodes / max(bounces, 1):.3f}",
           warp_walk_iterations=walk_iters, walk_lane_use=f"{nodes / max(32 * walk_iters, 1):.4f}",
           warp_bounce_rounds=rounds, ended_lanes=ended,
@@ -944,9 +1028,12 @@ def main() -> int:
           live_lane_rounds=32 * rounds - ended,
           philox_calls=philox_calls, draws=3 * bounces,
           int32_per_draw=f"{int_ops / max(3 * bounces, 1):.2f}",
-          fp32_ops=f"{fp_ops:.3e}", face_test_ops=f"{face_ops:.3e}", int32_ops=f"{int_ops:.3e}",
-          bytes=k5_bytes, bound_ms_per_launch=f"{k5_bound_ms:.4f}", bound_by=k5_bound_by,
-          of_bound=f"{k5_bound_ms / k5_ms:.4f}")
+          fp32_ops=f"{fp_ops:.3e}", own_visit_fp32_ops=f"{own_fp_ops:.3e}",
+          int32_ops=f"{int_ops:.3e}", bytes=k5_bytes,
+          bound_ms_per_launch=f"{k5_bound_ms:.4f}", bound_by=k5_bound_by,
+          of_bound=f"{k5_bound_ms / k5_ms:.4f}",
+          own_visit_bound_ms_per_launch=f"{own_bound_ms:.4f}",
+          own_visit_of_bound=f"{own_bound_ms / k5_ms:.4f}")
     if not (0 < cluster_visits <= nodes <= 32 * walk_iters and 0 <= ended < 32 * rounds
             and 32 * rounds - ended >= n * BOUNCE_ITERS):
         raise AssertionError(f"K5's counters disagree: {cluster_visits} visits, {stats.tolist()}")
@@ -1059,6 +1146,7 @@ def main() -> int:
             "bound_ms": main_time["bound_ms"],
             "bound_by": main_time["bound_by"],
             "library_ms": None,
+            "design": "redesigned: per-ray cluster-tree walk, warp-tested leaves (csrc/mesh.cuh)",
         })
     kernels.append({
         "name": "k5_bounce",

@@ -40,7 +40,7 @@ SIGNATURES = {
     # csrc/megakernel.cu
     "k1_accumulate": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I, _F, _F, _P]),
     # csrc/mesh_hit.cu
-    "mesh_hit": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "mesh_hit": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # csrc/prng.cu
     "k6_uniforms": (_I, [_I, _P, _I, _I, _P]),
     # csrc/bounce.cu

@@ -8,42 +8,47 @@
 //   K3 mesh_list_hit   (per-(8,128)-block visit lists, ascending),
 //   K4 mesh_pallas_hit (in-kernel slab test and lax.cond per cluster,
 //                       body in mesh_cluster_hit / _stream_cluster_faces).
-// The wrapper is ops/mesh_hit.py; the tier functions in ops/trace.py turn
-// its winner (barycentrics and face id) into texcoords and the TBN frame.
+// Those schedules (and the sublane-shifted face_shift buffer) are for the
+// TPU; here one walk computes their common function. The wrapper is
+// ops/mesh_hit.py; the tier functions in ops/trace.py turn its winner
+// (barycentrics and face id) into texcoords and the TBN frame.
 //
-// Inputs: rays [7, n] (origin xyz, direction xyz, t_cap), the plane-form
-// faces face_plane [16, fp] (rows fn xyz, c, U xyz, cu, V xyz, cv, geom;
-// scene/device_scene.py), the cluster AABBs [6, C] (min xyz, max xyz).
+// Inputs: rays [7, n] (origin xyz, direction xyz, t_cap), face_gather
+// [C, 4, 128, 4] (rows 0-12 of face_plane, four rows to a float4, 128 faces
+// to a block) and cluster_tree [C - 1, 16] (scene/device_scene.py).
 // Outputs [8, n]: t (inf where no face beats t_cap), the winner's face
-// normal xyz (unnormalized), geom id (-1: none), barycentric u, v, face id;
-// and, if the pointer is not null, visits [n]: the clusters each ray tested.
+// normal xyz (unnormalized), geom id (-1: none), barycentric u, v, face id
+// (0 where none). The counting build (when visits or stats is given)
+// writes visits [n], the clusters each ray tested, and adds into stats [3]
+// the interior nodes the rays visited, the warp traversal iterations and
+// the warp leaf rounds (mesh.cuh::WalkCount).
 //
-// Design. One thread per ray, 128 threads per block (one TPU row). The
-// block walks the clusters in ascending id. For each, every thread runs the
-// slab test against its own running best; __syncthreads_or skips the
-// cluster when no ray of the block needs it; otherwise the block copies the
-// cluster's 13 x 128 plane quantities (6.5 KB) into shared memory, and each
-// thread whose own test passed tests the 128 faces in order with a strict
-// '<', so the first minimum wins as in the plain version's first-index
-// argmin. All threads read the same face at the same time: broadcasts, no
-// bank conflicts. Rays past n and rays with t_cap 0 (padding, dead lanes)
-// visit nothing. The arithmetic is written with the _rn intrinsics in the
-// plain version's order, so no FMA contraction changes a rounding and the
-// kernel equals its plain version (ops/mesh_hit.py) bit for bit.
+// Design: one thread per ray, walking the cluster tree on its own stack,
+// near child first, with the leaves tested by the whole warp
+// (mesh.cuh::walk, shared with K5). The result is the least (t, face id)
+// below t_cap, which is what the plain version's ascending walk with its
+// strict '<' gives, ties included; only a face whose t rounds below its own
+// cluster's box entry can make the two walks differ (mesh.cuh). The walk
+// keeps t and the face id; the winner's u and v come from testing its face
+// once more after the walk (the same arithmetic, so the same bits), its
+// normal and geom id from its face's row. Rays past n take part in the
+// warp's rounds; padding and dead-lane rays (origin 1e7, t_cap 0) pass no
+// box and visit nothing. The arithmetic is written with the _rn intrinsics
+// in the plain version's order, so the kernel equals its plain version
+// (ops/mesh_hit.py) bit for bit.
 //
 // Bound on an H100: operations, not memory. A face test is ~51 FP32
-// operations and a ray makes visits x 128 of them; the faces are 1.5 MB
-// (the 23k-face ship) and each ray moves ~64 bytes. What this simple design
-// does about it: the shared-memory panel keeps the face reads off the
-// memory system, and the block-wide skip drops clusters no ray needs. It
-// visits clusters in id order, not near to far, and does not recheck a
-// visit against the block's running best (K2's order and recheck,
-// trace.py:1168-1195); those change only the speed and which face wins
-// among exactly equal t, and are the first speed work for this kernel.
+// operations and a correct walk tests at least the clusters whose box the
+// ray enters below its final t, x 128 faces; the faces are 1.5 MB (the
+// 23k-face ship) and each ray moves ~60 bytes. The design keeps every lane
+// testing faces when few of the warp's rays hold a leaf (after bounce 0 the
+// rays of a warp scatter), and visits each ray's clusters near to far, so
+// its running best prunes the rest. Blocks of 256 threads (the launch takes
+// 32 to 256): nothing is block-wide, and on an H100 256 ran 2-10% ahead of
+// 64 and 128 (PERF.md).
 //
-// The slab and face tests live in mesh.cuh, which K5 shares. Built by
-// mygpuraytracer_tpu_torch/_build.py (nvcc, sm_90a); the C entry point
-// returns cudaGetLastError() after the launch.
+// Built by mygpuraytracer_tpu_torch/_build.py (nvcc, sm_90a); the C entry
+// point returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -53,71 +58,69 @@
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int MAX_THREADS = 256;
 constexpr float PAD_ORIGIN = 1e7f;  // the padding-ray convention of the tiers
 
-__global__ void __launch_bounds__(THREADS)
-mesh_hit_kernel(const float* __restrict__ rays, const float* __restrict__ face_plane,
-                const float* __restrict__ bounds, float* __restrict__ out,
-                int* __restrict__ visits, int n, int fp_stride, int num_clusters) {
-  __shared__ float faces[Q * CS];
+template <bool COUNT>
+__global__ void __launch_bounds__(MAX_THREADS)
+    mesh_hit_kernel(const float* __restrict__ rays, const float4* __restrict__ faces,
+                    const float4* __restrict__ tree, float* __restrict__ out,
+                    int* __restrict__ visits, unsigned long long* __restrict__ stats, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
+  const int lane = static_cast<int>(threadIdx.x) % WARP;
+  const bool live = i < n;  // threads past n take part in the warp's rounds
   Ray r = {PAD_ORIGIN, PAD_ORIGIN, PAD_ORIGIN, 1.0f, 0.0f, 0.0f};
-  float best = 0.0f;
+  float t_cap = 0.0f;
   if (live) {
     r = {rays[i], rays[n + i], rays[2 * n + i], rays[3 * n + i], rays[4 * n + i], rays[5 * n + i]};
-    best = rays[6 * n + i];
+    t_cap = rays[6 * n + i];
   }
-  const float ix = __fdiv_rn(1.0f, clamp_eps(r.dx));
-  const float iy = __fdiv_rn(1.0f, clamp_eps(r.dy));
-  const float iz = __fdiv_rn(1.0f, clamp_eps(r.dz));
-  float fnx = 0.0f, fny = 0.0f, fnz = 0.0f, gid = -1.0f, bu = 0.0f, bv = 0.0f, fid = 0.0f;
-  int n_visits = 0;
-  for (int c = 0; c < num_clusters; ++c) {
-    const bool need = cluster_needed(r, ix, iy, iz, bounds, c, num_clusters, best);
-    // Also the barrier that ends every thread's reads of the last panel.
-    if (!__syncthreads_or(need)) continue;
-    for (int k = threadIdx.x; k < Q * CS; k += blockDim.x) {
-      faces[k] = face_plane[(k / CS) * fp_stride + c * CS + k % CS];
-    }
-    __syncthreads();
-    if (!need) continue;
-    ++n_visits;
-    for (int j = 0; j < CS; ++j) {
-      float t, u, v;
-      if (face_test(r, faces + j, CS, best, &t, &u, &v)) {
-        best = t;
-        fnx = faces[j];
-        fny = faces[CS + j];
-        fnz = faces[2 * CS + j];
-        gid = faces[12 * CS + j];
-        bu = u;
-        bv = v;
-        fid = static_cast<float>(c * CS + j);
-      }
+  Best best = no_face(t_cap);
+  WalkCount count{0u, 0u, 0u, 0u};
+  walk<COUNT>(tree, faces, r, live, best, count);
+  if (COUNT && stats != nullptr) {  // one atomic per counter and warp
+    const unsigned warp_nodes = __reduce_add_sync(FULL, count.nodes);
+    const unsigned warp_walk = __reduce_add_sync(FULL, count.walk_iters);
+    if (lane == 0) {
+      atomicAdd(stats, static_cast<unsigned long long>(warp_nodes));
+      atomicAdd(stats + 1, static_cast<unsigned long long>(warp_walk));
+      atomicAdd(stats + 2, static_cast<unsigned long long>(count.leaf_rounds));
     }
   }
   if (!live) return;
-  out[i] = gid >= 0.0f ? best : CUDART_INF_F;
-  out[n + i] = fnx;
-  out[2 * n + i] = fny;
-  out[3 * n + i] = fnz;
-  out[4 * n + i] = gid;
-  out[5 * n + i] = bu;
-  out[6 * n + i] = bv;
-  out[7 * n + i] = fid;
-  if (visits != nullptr) visits[i] = n_visits;
+  float q[Q] = {0.0f}, u = 0.0f, v = 0.0f;
+  q[12] = -1.0f;  // geom id: none
+  if (best.fid >= 0) {  // the winner's face once more: its u and v
+    float t;
+    load_face(cluster_faces(faces, best.fid / CS), best.fid % CS, q);
+    face_test(r, q, &t, &u, &v);
+  }
+  out[i] = best.fid >= 0 ? best.t : CUDART_INF_F;
+  out[n + i] = q[0];
+  out[2 * n + i] = q[1];
+  out[3 * n + i] = q[2];
+  out[4 * n + i] = q[12];
+  out[5 * n + i] = u;
+  out[6 * n + i] = v;
+  out[7 * n + i] = static_cast<float>(best.fid >= 0 ? best.fid : 0);
+  if (COUNT && visits != nullptr) visits[i] = static_cast<int>(count.visits);
 }
 
 }  // namespace
 
-extern "C" int mesh_hit(const float* rays, const float* face_plane, const float* bounds,
-                        float* out, int* visits, int n, int fp_stride, int num_clusters,
-                        void* stream) {
+extern "C" int mesh_hit(const float* rays, const float* face_gather, const float* tree,
+                        float* out, int* visits, unsigned long long* stats, int n,
+                        int num_clusters, int tree_depth, int threads, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + THREADS - 1) / THREADS;
-  mesh_hit_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      rays, face_plane, bounds, out, visits, n, fp_stride, num_clusters);
+  if (num_clusters < 2 || tree_depth < 1 || tree_depth > MAX_STACK || threads < WARP ||
+      threads > MAX_THREADS || threads % WARP != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (n + threads - 1) / threads;
+  auto kernel = (visits != nullptr || stats != nullptr) ? mesh_hit_kernel<true>
+                                                        : mesh_hit_kernel<false>;
+  kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rays, reinterpret_cast<const float4*>(face_gather), reinterpret_cast<const float4*>(tree),
+      out, visits, stats, n);
   return static_cast<int>(cudaGetLastError());
 }

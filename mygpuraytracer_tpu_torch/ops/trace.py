@@ -383,13 +383,13 @@ def _cluster_bounds(meta, device) -> torch.Tensor:
                         dtype=torch.float32, device=device).reshape(6, -1)
 
 
-def _nearest_face(meta, fp, o: Vec3, d: Vec3, t_cap, bounds) -> torch.Tensor:
+def _nearest_face(meta, fp, o: Vec3, d: Vec3, t_cap, bounds, face_gather, tree) -> torch.Tensor:
     """The tiers' one query (ops/mesh_hit.py): [8, N] t, fn xyz, geom id,
     barycentric u, v, face id."""
     if bounds is None:
         bounds = _cluster_bounds(meta, o.x.device)
     rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_cap]).to(torch.float32)
-    return mesh_hit(fp, bounds, rays)[0]
+    return mesh_hit(fp, bounds, rays, face_gather=face_gather, tree=tree)[0]
 
 
 def _unpack_f16_pairs(words: torch.Tensor) -> torch.Tensor:
@@ -412,7 +412,8 @@ def _oct8_decode(qx: torch.Tensor, qy: torch.Tensor):
 
 
 def mesh_rows_hit(meta, fs, o: Vec3, d: Vec3, t_cap, with_uv: bool = False,
-                  with_tb: bool = False, dma: bool | None = None, ex=None, bounds=None):
+                  with_tb: bool = False, dma: bool | None = None, ex=None, bounds=None,
+                  face_gather=None, tree=None):
     """K2, the rows tier (``mesh_tier="rows"``, and ``"rows_dma"``): the
     nearest mesh face closer than ``t_cap`` per ray, with the winner's uv
     and TBN gathered afterwards from the table ``ex``, one row per winner:
@@ -422,14 +423,16 @@ def mesh_rows_hit(meta, fs, o: Vec3, d: Vec3, t_cap, with_uv: bool = False,
     ``fs`` is the face buffer, ``dev.face_plane``: the TPU read its
     sublane-shifted copy, which the port does not build. ``dma`` chose the
     buffer's residence on the TPU and changes nothing here. ``bounds`` is
-    ``dev.cluster_bounds`` (built from ``meta`` when None).
+    ``dev.cluster_bounds`` (built from ``meta`` when None); the kernel, on
+    CUDA tensors, walks ``face_gather`` and ``tree`` (``dev.face_gather``,
+    ``dev.cluster_tree``), which CPU tensors do not need.
 
     Returns (t [N], inf where no face beats t_cap; unnormalized face normal
     Vec3; geom id f32 [N], -1 for none; extras: (u, v) if ``with_uv``, then
     tangent xyz, bitangent xyz if ``with_tb``). Extras of lanes without a
     mesh winner are those of face 0.
     """
-    out = _nearest_face(meta, fs, o, d, t_cap, bounds)
+    out = _nearest_face(meta, fs, o, d, t_cap, bounds, face_gather, tree)
     return out[0], Vec3(out[1], out[2], out[3]), out[4], _winner_extras(out, ex, with_uv, with_tb)
 
 
@@ -478,20 +481,20 @@ def _plane_ex_extras(out: torch.Tensor, ex, with_uv: bool, with_tb: bool) -> tup
 
 
 def mesh_list_hit(meta, fp, o: Vec3, d: Vec3, t_cap, ex=None, with_uv: bool = False,
-                  with_tb: bool = False, bounds=None):
+                  with_tb: bool = False, bounds=None, face_gather=None, tree=None):
     """K3, the lists tier (``mesh_tier="lists"``): the same query as
     :func:`mesh_rows_hit`, with uv and TBN taken from ``ex`` =
     ``dev.face_plane_ex``. Returns (t, face normal Vec3, geom id, extras)."""
-    out = _nearest_face(meta, fp, o, d, t_cap, bounds)
+    out = _nearest_face(meta, fp, o, d, t_cap, bounds, face_gather, tree)
     return (out[0], Vec3(out[1], out[2], out[3]), out[4],
             _plane_ex_extras(out, ex, with_uv, with_tb))
 
 
 def mesh_pallas_hit(meta, fp, o: Vec3, d: Vec3, t_cap, ex=None, with_uv: bool = False,
-                    with_tb: bool = False, bounds=None):
+                    with_tb: bool = False, bounds=None, face_gather=None, tree=None):
     """K4, the conds tier (``mesh_tier="conds"``): the same query and
     outputs as :func:`mesh_list_hit`."""
-    return mesh_list_hit(meta, fp, o, d, t_cap, ex, with_uv, with_tb, bounds)
+    return mesh_list_hit(meta, fp, o, d, t_cap, ex, with_uv, with_tb, bounds, face_gather, tree)
 
 
 def _merge_mesh_winner(meta, run: _Running, win, mt, fn: Vec3, gf) -> Vec3:
@@ -520,8 +523,8 @@ def bvh_scene_hit(meta, fp, o: Vec3, d: Vec3, bounds=None) -> HitSoA:
 def mesh_nearfar_hit(meta, fp, o: Vec3, d: Vec3, t_cap, active, bounds=None):
     """Plain version of K5's near-to-far cluster walk: for each ``active``
     ray, the nearest face closer than ``t_cap``; dead lanes find none. The
-    walk's order changes only which face wins among faces at exactly equal
-    t, so this runs ``mesh_hit_reference`` (ascending cluster id).
+    lowest face id wins among faces at equal t whatever the walk's order,
+    so this runs ``mesh_hit_reference`` (ascending cluster id).
 
     Returns (win bool[N], t [N] (``t_cap`` where no face won), the winner's
     unnormalized face normal Vec3, geom id f32 [N], -1 for none), like the
@@ -591,12 +594,14 @@ def intersect_soa(
             table = _winner_ex(dev, winner_table)
             query = lambda ov, dv, tc: mesh_rows_hit(
                 meta, dev.face_plane, ov, dv, tc, with_uv=meta.has_textures,
-                with_tb=with_bump, ex=table, bounds=dev.cluster_bounds)
+                with_tb=with_bump, ex=table, bounds=dev.cluster_bounds,
+                face_gather=dev.face_gather, tree=dev.cluster_tree)
         elif mesh_tier in ("lists", "conds"):
             tier_fn = mesh_list_hit if mesh_tier == "lists" else mesh_pallas_hit
             query = lambda ov, dv, tc: tier_fn(
                 meta, dev.face_plane, ov, dv, tc, ex=dev.face_plane_ex,
-                with_uv=meta.has_textures, with_tb=with_bump, bounds=dev.cluster_bounds)
+                with_uv=meta.has_textures, with_tb=with_bump, bounds=dev.cluster_bounds,
+                face_gather=dev.face_gather, tree=dev.cluster_tree)
         else:
             raise ValueError(f"unknown mesh_tier {mesh_tier!r}")
         if mesh_sort:

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..ops import prng, rng
+from ..ops.mesh_hit import MAX_TREE_DEPTH, tree_depth
 from ..ops.trace import bvh_scene_hit_nearfar
 from ..ops.vec3 import Vec3
 from ..scene.device_scene import CameraParams, DeviceScene, SceneMeta
@@ -52,7 +53,6 @@ HEADER = 16  # [num_geoms, num_faces, camera: pos3 view3 up3 right3 pixel_length
 GEOM_STRIDE = 48  # type, material, xform 3x4, inverse 3x4, inv_transpose 3x3, material 11
 FACE_STRIDE = 16  # geom, v0 3, e1 3, e2 3, unit normal 3, pad 3
 
-MAX_TREE_DEPTH = 32  # K5's per-thread stack (csrc/bounce.cu MAX_STACK)
 # K5's counters: tree nodes, warp traversal iterations, warp bounce rounds,
 # lanes of ended paths over those rounds (csrc/bounce.cu).
 STATS = 4
@@ -225,12 +225,6 @@ def bvh_bounce_accumulate(
         rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z])
         bounce_launch(dev, meta, options, acc, rays, it, ikey, record, visits)
     return acc
-
-
-def tree_depth(num_clusters: int) -> int:
-    """Levels below the root of ``build_cluster_tree``'s tree, leaves
-    included: ceil(log2 C), the most entries K5's stack holds."""
-    return (num_clusters - 1).bit_length()
 
 
 def bounce_launch(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,

@@ -31,13 +31,14 @@ patterns in int32 tensors (torch's bitwise ops take int32).
 
 The TPU's sublane-shifted copy of the faces (``face_shift``) is not built:
 it is a layout for the TPU's lane rolls. Two layouts of the port's own serve
-K5's per-ray walk (csrc/bounce.cu): ``cluster_tree``, a balanced binary tree
-over the Morton-ordered cluster boxes (:func:`build_cluster_tree`), and
-``face_gather``, ``face_plane``'s rows 0-12 as float4s in per-cluster
-blocks, so that 32 lanes testing 32 consecutive faces read 512 contiguous
-bytes per float4. They are built only for the scenes K5 can take, meshes of
-more than ``MEGA_FACE_CAP`` faces without textures; elsewhere both are
-empty.
+the per-ray cluster walk (csrc/mesh.cuh) of the mesh tiers' kernel
+(csrc/mesh_hit.cu) and of K5 (csrc/bounce.cu): ``cluster_tree``, a balanced
+binary tree over the Morton-ordered cluster boxes
+(:func:`build_cluster_tree`), and ``face_gather``, ``face_plane``'s rows
+0-12 as float4s in per-cluster blocks, so that 32 lanes testing 32
+consecutive faces read 512 contiguous bytes per float4. They are built for
+every mesh of more than ``MEGA_FACE_CAP`` faces, textured or not; elsewhere
+both are empty.
 """
 
 from __future__ import annotations
@@ -102,13 +103,13 @@ class DeviceScene(NamedTuple):
     cluster_bounds: torch.Tensor  # f32[6, C]: min xyz, max xyz of each cluster
     # Rows 0-12 of face_plane, zero-padded to 16, four rows to a float4 and
     # one block per cluster: f32[Fp / 128, 4, 128, 4], [c, k, j, i] = row
-    # 4k + i of face c * 128 + j. f32[0, 4, 128, 4] unless K5 can take the
-    # scene (a mesh of more than MEGA_FACE_CAP faces, no textures).
+    # 4k + i of face c * 128 + j. f32[0, 4, 128, 4] unless the scene has a
+    # mesh of more than MEGA_FACE_CAP faces (the cluster walk's meshes).
     face_gather: torch.Tensor
     # build_cluster_tree: f32[max(C - 1, 0), 16], the interior nodes in
     # preorder (root 0); per node the left child's box (min xyz, max xyz),
     # the right child's box, then the two child links as int32 bits.
-    # f32[0, 16] unless K5 can take the scene, as face_gather.
+    # f32[0, 16] unless the scene has such a mesh, as face_gather.
     cluster_tree: torch.Tensor
     mat_color: torch.Tensor  # f32[M,3]
     mat_spec_color: torch.Tensor  # f32[M,3]
@@ -248,6 +249,16 @@ def build_cluster_tree(cmin: np.ndarray, cmax: np.ndarray) -> np.ndarray:
     if n:
         build(0, n)
     return nodes
+
+
+def build_face_gather(face_plane: np.ndarray) -> np.ndarray:
+    """Rows 0-12 of ``face_plane`` [16, Fp], zero-padded to 16, four rows to
+    a float4 and one block per cluster: f32[Fp / 128, 4, 128, 4], element
+    [c, k, j, i] is row 4k + i of face c * 128 + j."""
+    fp = face_plane.shape[1]
+    rows = np.zeros((16, fp), np.float32)
+    rows[:13] = face_plane[:13]
+    return rows.reshape(4, 4, fp // CLUSTER_SIZE, CLUSTER_SIZE).transpose(2, 0, 3, 1)
 
 
 def _pad_to(n: int, multiple: int) -> int:
@@ -491,14 +502,11 @@ def build_device_scene(
         if has_textures:
             face_tb[sl], face_plane_ex = _uv_tbn(
                 face_e1[sl], face_e2[sl], face_uv0[sl], face_uv1[sl], face_uv2[sl], Fp)
-    # K5's layouts, for the scenes it can take (render/megakernel.py::_uses_bvh,
-    # supports_megakernel).
+    # The cluster walk's layouts, for every mesh that takes the tiers or K5.
     face_gather = np.zeros((0, 4, CLUSTER_SIZE, 4), np.float32)
     cluster_tree = np.zeros((0, 16), np.float32)
-    if num_faces > MEGA_FACE_CAP and not has_textures:
-        rows = np.zeros((16, Fp), np.float32)
-        rows[:13] = face_plane[:13]
-        face_gather = rows.reshape(4, 4, Fp // CLUSTER_SIZE, CLUSTER_SIZE).transpose(2, 0, 3, 1)
+    if num_faces > MEGA_FACE_CAP:
+        face_gather = build_face_gather(face_plane)
         cluster_tree = build_cluster_tree(cluster_bounds[0:3].T, cluster_bounds[3:6].T)
     ex12 = np.ascontiguousarray(face_plane_ex[list(range(6)) + list(range(8, 14))].T)
     otx, oty = _oct8(ex12[:, 6:9])

@@ -1,18 +1,20 @@
-"""K5's scene layouts: the cluster tree and the per-face copy of the planes.
+"""The cluster walk's scene layouts (K5 and the mesh tiers' kernel): the
+cluster tree and the per-cluster float4 copy of the planes.
 
 - ``cluster_tree`` (``scene/device_scene.py::build_cluster_tree``): every
   child box a node holds is the exact float32 min/max union of the clusters
   below it, so it contains the boxes of that child's own children bit for
   bit and a leaf's box equals its cluster's ``cluster_bounds`` column; the
   leaves are the C clusters, once each, in ascending order; the depth is at
-  most ceil(log2 C) + 1. K5 (csrc/bounce.cu) prunes with these boxes, and a
-  box that were not an exact union could prune a cluster the plain walk
-  tests.
+  most ceil(log2 C) + 1. The walk (csrc/mesh.cuh) prunes with these boxes,
+  and a box that were not an exact union could prune a cluster the plain
+  walk tests.
 - ``face_gather`` [Fp / 128, 4, 128, 4]: element [c, k, j, i] is row 4k + i
   of ``face_plane`` at face c * 128 + j, bit for bit, for rows 0-12, and zero
   for the padding rows 13-15.
-- Both are built only where K5 can run (a mesh of more than 256 faces, no
-  textures); a scene without a mesh or with textures gets empty ones.
+- Both are built for every mesh of more than 256 faces, the meshes the
+  tiers and K5 walk, textured (shipTexOnly, which K5 cannot run) or not; a
+  scene without such a mesh gets empty ones.
 
 Tolerance: none (exact float32 copies and min/max).
 """
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from mygpuraytracer_tpu_torch.config import RenderOptions
 from mygpuraytracer_tpu_torch.render import megakernel
 from mygpuraytracer_tpu_torch.scene import load_scene
 from mygpuraytracer_tpu_torch.scene.device_scene import build_cluster_tree, build_device_scene
@@ -94,7 +97,7 @@ def test_cluster_tree_of_random_boxes(C):
     _check_tree(lo, hi)
 
 
-@pytest.mark.parametrize("name", ["cornellShip", "shipOnly"])
+@pytest.mark.parametrize("name", ["cornellShip", "shipOnly", "shipTexOnly"])
 def test_face_gather_is_face_plane_in_cluster_blocks(name):
     dev, _ = build_device_scene(load_scene(str(REPO / f"scenes/{name}.txt")), device="cpu")
     fp, fg = dev.face_plane, dev.face_gather
@@ -109,8 +112,35 @@ def test_face_gather_is_face_plane_in_cluster_blocks(name):
 
 @pytest.mark.parametrize("name", ["builtin_cornell", "shipTexOnly"])
 def test_k5_layouts_are_empty_where_k5_cannot_run(name):
-    # No mesh, or a textured one: K5 refuses both, so neither layout is built.
+    # K5 cannot run either scene: one has no mesh, the other textures. The
+    # layouts are empty only without a mesh of more than 256 faces; the
+    # textured ship has them, for the mesh tiers' walk.
     dev, meta = build_device_scene(load_scene(str(REPO / f"scenes/{name}.txt")), device="cpu")
     assert meta.has_textures or meta.num_faces <= 256
-    assert tuple(dev.face_gather.shape) == (0, 4, 128, 4) and dev.face_gather.dtype == torch.float32
-    assert tuple(dev.cluster_tree.shape) == (0, 16) and dev.cluster_tree.dtype == torch.float32
+    options = RenderOptions(megakernel=True, bounce_megakernel=True)
+    assert not (megakernel.supports_megakernel(meta, options) and megakernel._uses_bvh(meta))
+    C = dev.cluster_bounds.shape[1] if meta.num_faces > 256 else 0
+    assert tuple(dev.face_gather.shape) == (C, 4, 128, 4) and dev.face_gather.dtype == torch.float32
+    assert tuple(dev.cluster_tree.shape) == (max(C - 1, 0), 16)
+    assert dev.cluster_tree.dtype == torch.float32
+    assert (C > 0) == (name == "shipTexOnly")
+
+
+def test_textured_scene_gets_the_walk_layouts():
+    """shipTexOnly (textured, bump-mapped): ``face_gather`` is its own
+    ``face_plane`` rows 0-12 in the float4 layout, bit for bit, and the tree
+    is ``build_cluster_tree`` of its ``cluster_bounds``."""
+    dev, meta = build_device_scene(load_scene(str(REPO / "scenes/shipTexOnly.txt")), device="cpu")
+    assert meta.has_textures and meta.num_faces > 256
+    fp, fg = dev.face_plane, dev.face_gather
+    C = dev.cluster_bounds.shape[1]
+    assert tuple(fg.shape) == (C, 4, 128, 4) and C * 128 == fp.shape[1] and fg.is_contiguous()
+    for c in (0, C // 2, C - 1):
+        for k in range(4):
+            for i in range(4):
+                row = 4 * k + i
+                want = fp[row, c * 128:(c + 1) * 128] if row < 13 else torch.zeros(128)
+                assert torch.equal(fg[c, k, :, i].view(torch.int32), want.view(torch.int32))
+    bounds = dev.cluster_bounds.numpy()
+    want = build_cluster_tree(bounds[0:3].T.copy(), bounds[3:6].T.copy())
+    assert np.array_equal(dev.cluster_tree.numpy().view(np.int32), want.view(np.int32))

@@ -7,8 +7,9 @@ Tolerance (K1's, chip_smoke.py's bars), at 128x128 over 4 iterations:
 under 1% of pixels whose mean color or first-hit AOVs differ by more than
 1e-2, and rmse < 1e-3 over the other pixels. The kernel contracts
 multiply-adds in the primitive tests and shade and rounds rsqrt otherwise,
-and its tree walk picks among faces at exactly equal t in another order, so
-a few paths may diverge. The counting build changes nothing in the image,
+and its near-to-far tree walk may find a face whose t rounds below its own
+box's entry where the ascending plain walk does not, so a few paths may
+diverge. The counting build changes nothing in the image,
 and the walk's counters (clusters tested per ray, tree nodes, warp
 traversal iterations, warp bounce rounds, lanes of ended paths) are
 consistent: every visit lies below a visited node, and every pixel's first

@@ -4,9 +4,14 @@ Imports torch and the port only, so it runs on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_mesh_cuda.py
 Without a CUDA device every case skips: the kernel has no CPU mode.
 
-- The kernel's raw outputs and visit counts equal the plain version's bit
-  for bit on the same CUDA tensors: the kernel rounds every operation as
-  PyTorch's one-op-at-a-time arithmetic does (csrc/mesh_hit.cu).
+- The kernel's raw outputs equal the plain version's bit for bit on the
+  same CUDA tensors: the kernel rounds every operation as PyTorch's
+  one-op-at-a-time arithmetic does, and the lowest face id wins among
+  equal t in both (csrc/mesh_hit.cu). Its visits lie between the clusters
+  whose box a ray enters below its final t and those it enters below t_cap
+  (the kernel walks near to far, the plain version in ascending id); the
+  counting build gives the timed build's outputs, and so does every block
+  size the launch takes.
 - Each tier name (rows, lists, conds) through ``intersect_soa`` on the
   card, once with the kernel and once with the plain version in its place
   on the same CUDA tensors: every field of the hit equal. (Against the CPU
@@ -68,15 +73,25 @@ def test_kernel_equals_plain_bit_for_bit(scene):
                       torch.where(dead, 0.0, _vec(d, "cuda").y)[None],
                       torch.where(dead, 0.0, _vec(d, "cuda").z)[None],
                       torch.where(dead, 0.0, t_cap)[None]]).contiguous()
+    walk = dict(face_gather=dev.face_gather, tree=dev.cluster_tree)
     before = mh.LAUNCHES
-    out_k, visits_k = mh.mesh_hit(dev.face_plane, dev.cluster_bounds, rays, with_visits=True)
+    stats = torch.zeros(mh.STATS, dtype=torch.int64, device="cuda")
+    out_k, visits_k = mh.mesh_hit(dev.face_plane, dev.cluster_bounds, rays, with_visits=True,
+                                  stats=stats, **walk)
     torch.cuda.synchronize()
     assert mh.LAUNCHES == before + 1
-    out_p, visits_p = mh.mesh_hit_reference(dev.face_plane, dev.cluster_bounds, rays,
-                                            with_visits=True)
+    out_p, _ = mh.mesh_hit_reference(dev.face_plane, dev.cluster_bounds, rays)
     assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
-    assert torch.equal(visits_k, visits_p)
+    necessary = mh.clusters_reached(dev.cluster_bounds, rays, mh.final_t(out_p, rays))
+    reachable = mh.clusters_reached(dev.cluster_bounds, rays, rays[6])
+    assert (necessary <= visits_k).all() and (visits_k <= reachable).all()
     assert int((out_k[4] >= 0).sum()) > N // 10 and int(visits_k[dead].sum()) == 0
+    nodes, walk_iters, leaf_rounds = stats.tolist()
+    assert nodes >= int(visits_k.sum()) > 0 and 0 < walk_iters <= nodes
+    assert 0 < leaf_rounds <= int(visits_k.sum())
+    for threads in (32, 64, 128, 256):
+        out, _ = mh.mesh_hit(dev.face_plane, dev.cluster_bounds, rays, threads=threads, **walk)
+        assert torch.equal(out.view(torch.int32), out_k.view(torch.int32)), threads
 
 
 @pytest.mark.requires_cuda
@@ -92,7 +107,8 @@ def test_tier_on_card_matches_plain_tier(scene, tier, monkeypatch):
     hk = trace.intersect_soa(meta, dev, o, d, **kw)
     torch.cuda.synchronize()
     assert mh.LAUNCHES == before + 1
-    monkeypatch.setattr(trace, "mesh_hit", mh.mesh_hit_reference)
+    monkeypatch.setattr(trace, "mesh_hit", lambda fp, bounds, rays, with_visits=False, **walk:
+                        mh.mesh_hit_reference(fp, bounds, rays, with_visits))
     hp = trace.intersect_soa(meta, dev, o, d, **kw)
     assert mh.LAUNCHES == before + 1
     for name in EXACT + ("u", "v"):
