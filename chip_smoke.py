@@ -20,7 +20,17 @@ seconds:
 3. k1_parity   -- K1 against its plain PyTorch version on cornell and
                   cornellGlass (800x800, depth 8, 16 iterations, same seed)
 4. render      -- K1's main path: Renderer.render_denoised, launch counts
-                  read around it; then K1 timed with CUDA events
+                  read around it; then K1 timed with CUDA events against its
+                  bound and the issue-slot view; the counting build's lane
+                  use, raygen share, pixel fetches and atomics and tail
+                  rounds beside the lane use the plain nesting (one thread a
+                  pixel, the bounce loop inside the iteration loop) would
+                  have on the same paths, and its live lane-rounds against
+                  the plain wavefront's ray-bounces; the sweep of block
+                  sizes and resident blocks per SM; the same with depth of
+                  field; ptxas's registers and spills of K1 and the loads
+                  of the scene record per geom test and per bounce, counted
+                  in the SASS of probes read as K5 reads it and as K1 does
 5. mesh_parity -- the mesh kernel against its plain version on the bounce-0
                   and bounce-1 queries of cornellShip and cornellShipTex:
                   bitwise on every output (lanes that differ must be proven
@@ -75,6 +85,7 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -171,6 +182,15 @@ FP_OPS_SHADE = 120  # diffuse bounce: cosine hemisphere (2 sqrt, sin, cos, 2 nor
 # bound, not in it.
 FP_OPS_FACE_TEST = 51
 MESH_BLOCK_SIZES = (64, 128, 256)  # the mesh kernel's block-size sweep
+# K1's sweep: block sizes, and the warps per SM asked (blocks per SM =
+# warps / warps per block, at most what the occupancy query allows).
+K1_BLOCK_SIZES = (64, 128, 256)
+K1_WARPS_PER_SM = (8, 16, 24, 32, 48, 64)
+# K1's live lane-rounds (counting build) against the plain wavefront's
+# ray-bounces: a path that branches the other way under the kernel's
+# rounding (1-3 pixels of 640000 in k1_parity) may bounce a different
+# number of times.
+K1_LIVE_REL = 1e-4
 NECESSARY_CHUNK = 65536  # rays per chunk of the necessary-visit count
 # K6 against its plain version: bit for bit (integer arithmetic and one
 # exact conversion). Its values: on the 2^-24 grid in [0, 1), mean and
@@ -246,9 +266,14 @@ INT_OPCODES = {"IADD3", "IMAD", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT", "I
 SASS: dict = {}  # per-draw integer instruction counts, filled by phase build
 
 
-def sass_int_counts(path: str) -> dict:
-    """{kernel symbol: (integer instructions, all instructions)} from
-    ``cuobjdump -sass`` of a built library or cubin."""
+# SASS opcodes that load: global, shared, constant (per thread and uniform),
+# generic and local (spills).
+LOAD_OPCODES = ("LDG", "LDS", "LDC", "ULDC", "LD", "LDL")
+
+
+def sass_opcodes(path: str) -> dict:
+    """{kernel symbol: Counter of SASS opcodes} from ``cuobjdump -sass`` of
+    a built library or cubin."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
                           check=True, timeout=120).stdout
@@ -256,14 +281,38 @@ def sass_int_counts(path: str) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = [0, 0]
+            counts[name] = collections.Counter()
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m and name is not None:
-            op = m.group(1).split(".")[0]
-            counts[name][1] += 1
-            counts[name][0] += op in INT_OPCODES
-    return {k: tuple(v) for k, v in counts.items()}
+            counts[name][m.group(1).split(".")[0]] += 1
+    return counts
+
+
+def sass_int_counts(path: str) -> dict:
+    """{kernel symbol: (integer instructions, all instructions)}."""
+    return {k: (sum(v[op] for op in INT_OPCODES), sum(v.values()))
+            for k, v in sass_opcodes(path).items()}
+
+
+def loads(ops) -> int:
+    return sum(ops[op] for op in LOAD_OPCODES)
+
+
+def pick(counts: dict, word: str):
+    return next(v for k, v in counts.items() if word in k)
+
+
+def build_probe(source: str, d: str):
+    """Compile ``source`` (with the kernels' flags and csrc/ headers) to a
+    cubin in ``d``; its path."""
+    src, cubin = os.path.join(d, "probe.cu"), os.path.join(d, "probe.cubin")
+    with open(src, "w") as f:
+        f.write(source)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([_build.find_nvcc(), *flags, "-cubin", "-I", _build.CSRC, "-o", cubin, src],
+                   capture_output=True, text=True, check=True, timeout=300)
+    return cubin
 
 
 def sass_draw_counts() -> dict:
@@ -271,19 +320,108 @@ def sass_draw_counts() -> dict:
     Philox per call from DRAW_PROBE, and K6's whole kernel per draw from the
     built library (csrc/prng.cu)."""
     with tempfile.TemporaryDirectory() as d:
-        src, cubin = os.path.join(d, "probe.cu"), os.path.join(d, "probe.cubin")
-        with open(src, "w") as f:
-            f.write(DRAW_PROBE)
-        flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-        subprocess.run([_build.find_nvcc(), *flags, "-cubin", "-I", _build.CSRC, "-o", cubin, src],
-                       capture_output=True, text=True, check=True, timeout=300)
-        probe = sass_int_counts(cubin)
-    pick = lambda counts, word: next(v for k, v in counts.items() if word in k)
+        probe = sass_int_counts(build_probe(DRAW_PROBE, d))
     per = lambda kind: (pick(probe, f"probe_{kind}ILi16")[0] - pick(probe, f"probe_{kind}ILi8")[0]) / 8
     k6_lib = next(p for p in _build.build() if os.path.basename(p).startswith("libprng_"))
     k6_int, k6_all = pick(sass_int_counts(k6_lib), "k6_kernel")
     return {"threefry_int_per_draw": per("threefry"), "philox_int_per_call": per("philox"),
             "k6_kernel_int": k6_int, "k6_kernel_instructions": k6_all}
+
+
+# Probes of the scene record's reads, built with the kernels' flags and
+# headers: D reads in a chain (a box test, a sphere test, or a material
+# read at an index that differs across the warp, as shade's), so (loads at
+# 4 - loads at 2) / 2 is one read's load instructions, from the record in
+# global memory as K5 reads it (RecScene) or from K1's copy in shared
+# memory (SharedScene).
+LOAD_PROBE = r"""
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+#include "megakernel.cu"
+template <int KIND, int D, class S>
+__device__ __forceinline__ float probe_chain(const S& scene, int p) {
+  V3 o = {1e-3f * static_cast<float>(p), 0.5f, 2.0f}, d = {0.1f, 0.2f, -1.0f};
+  float acc = 0.0f;
+#pragma unroll
+  for (int g = 0; g < D; ++g) {
+    V3 nrm = {0.0f, 0.0f, 0.0f};
+    float t;
+    if (KIND == 0) {
+      t = box_intersect(scene.geom(g), o, d, nrm);
+    } else if (KIND == 1) {
+      t = sphere_intersect(scene.geom(g), o, d, nrm);
+    } else {
+      const Material m = scene.material((g + p) % 8);
+      t = m.color.x + m.color.y + m.color.z + m.spec_ex + m.refl + m.refr + m.ior + m.emit;
+      nrm = m.spec;
+    }
+    acc += t + nrm.x + nrm.y + nrm.z;
+    o.x += 1e-6f * t;
+  }
+  return acc;
+}
+template <int KIND, int D>
+__global__ void probe_global(const float* __restrict__ rec, float* out) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  out[p] = probe_chain<KIND, D>(RecScene{rec, 8, 0}, p);
+}
+template <int KIND, int D>
+__global__ void probe_shared(const float* __restrict__ rec, int len, float* out) {
+  extern __shared__ float4 probe_rec[];
+  for (int k = threadIdx.x; k < len; k += blockDim.x) {
+    const int at = shared_slot(k, 8);
+    if (at >= 0) reinterpret_cast<float*>(probe_rec)[at] = rec[k];
+  }
+  __syncthreads();
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  out[p] = probe_chain<KIND, D>(SharedScene{probe_rec, 8, 0}, p);
+}
+""" + "".join(
+    f"template __global__ void probe_global<{k}, {d}>(const float*, float*);\n"
+    f"template __global__ void probe_shared<{k}, {d}>(const float*, int, float*);\n"
+    for k in range(3) for d in (2, 4))
+LOAD_KINDS = ("box", "sphere", "material")
+
+
+def sass_load_counts() -> dict:
+    """Load instructions per scene read from LOAD_PROBE ({"global" /
+    "shared": {box, sphere, material}}), and the opcode counts of the load
+    instructions in the built K1 (plain and counting builds)."""
+    with tempfile.TemporaryDirectory() as d:
+        probe = sass_opcodes(build_probe(LOAD_PROBE, d))
+    per = lambda where, kind: (loads(pick(probe, f"probe_{where}ILi{kind}ELi4E"))
+                               - loads(pick(probe, f"probe_{where}ILi{kind}ELi2E"))) / 2
+    out = {where: {name: per(where, k) for k, name in enumerate(LOAD_KINDS)}
+           for where in ("global", "shared")}
+    k1_lib = next(p for p in _build.build() if os.path.basename(p).startswith("libmegakernel_"))
+    k1 = sass_opcodes(k1_lib)
+    for build, word in (("k1_kernel", "k1_kernelILb0E"), ("k1_counting", "k1_kernelILb1E")):
+        ops = pick(k1, word)
+        out[build] = {op: ops[op] for op in LOAD_OPCODES if ops[op]}
+        out[build]["all"] = sum(ops.values())
+    return out
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel symbol: {registers, stack, spill_stores, spill_loads}} from
+    the ``-Xptxas -v`` messages of a build."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            usage[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
 
 
 def host_us(fn, calls: int = 500, repeats: int = 3) -> float:
@@ -359,19 +497,20 @@ def cuda_ms(fn, repeats: int = 1) -> float:
     return float(np.mean(times))
 
 
-def ray_bounces(dev, meta, options, iterations) -> tuple[int, int, int]:
-    """(ray-bounces, Philox calls, necessary cluster visits) that
-    ``iterations`` of this scene execute under ``options.rng``: the
-    data-dependent work K1 and K5 do. A ray-bounce is one nearest-hit test
-    and one shade of a live path; a path of B bounces draws rows 4 .. 3B + 3,
-    i.e. (3B + 3) // 4 Philox groups of 4 rows when K5 draws K6's stream.
-    The necessary visits (meshes that take the cluster walk, else 0): per
-    ray-bounce, the clusters whose box the ray enters below its nearest
-    hit's t."""
+def ray_bounces(dev, meta, options, iterations) -> tuple[int, int, int, torch.Tensor]:
+    """(ray-bounces, Philox calls, necessary cluster visits, each path's
+    bounces [iterations, N]) that ``iterations`` of this scene execute under
+    ``options.rng``: the data-dependent work K1 and K5 do. A ray-bounce is
+    one nearest-hit test and one shade of a live path; a path of B bounces
+    draws rows 4 .. 3B + 3, i.e. (3B + 3) // 4 Philox groups of 4 rows when
+    K5 draws K6's stream. The necessary visits (meshes that take the
+    cluster walk, else 0): per ray-bounce, the clusters whose box the ray
+    enters below its nearest hit's t."""
     n = meta.resolution[0] * meta.resolution[1]
     key = rng.make_key(SEED)
     walk = meta.has_obj and dev.cluster_tree.shape[0] > 0
     total = calls = necessary = 0
+    paths = []
     for it in iterations:
         U = prng.iteration_uniforms(options, rng.iteration_key(key, it), it,
                                     num_rng_streams(meta.trace_depth), n,
@@ -395,7 +534,48 @@ def ray_bounces(dev, meta, options, iterations) -> tuple[int, int, int]:
                                                      NECESSARY_CHUNK).sum())
             s = shade_soa(meta, dev, s, h, U[4 + 3 * b], U[5 + 3 * b], U[6 + 3 * b])
         calls += int(((3 * per_path + 3) // 4).sum())
-    return total, calls, necessary
+        paths.append(per_path)
+    return total, calls, necessary, torch.stack(paths)
+
+
+def lockstep_lane_use(paths: torch.Tensor) -> float:
+    """The lane use of one thread per pixel with the bounce loop nested in
+    the iteration loop, on these paths' bounces [iterations, N]: a warp of
+    32 consecutive pixels runs each iteration's bounce rounds until its
+    longest path ends, so the lanes are used sum(bounces) / (32 x the sum
+    over warps and iterations of the warp's longest path)."""
+    warps = torch.nn.functional.pad(paths, (0, (-paths.shape[1]) % 32)).view(paths.shape[0], -1, 32)
+    return float(paths.sum()) / float(32 * warps.amax(dim=2).sum())
+
+
+def time_k1(run, acc: torch.Tensor, repeats: int = 5) -> float:
+    """K1's median device ms per launch over ``repeats`` launches of
+    ``run()`` into zeroed accumulators, after one warm-up."""
+    times = []
+    for _ in range(repeats + 1):
+        acc.zero_()
+        times.append(cuda_ms(run))
+    return float(np.median(times[1:]))
+
+
+def k1_counters(dev, meta, options, key, record, iterations: int) -> dict:
+    """One counting launch of K1 (``iterations`` from iteration 1, zeroed
+    accumulators): its counters, the shares they give, and whether its
+    accumulators equal the plain build's."""
+    n = meta.resolution[0] * meta.resolution[1]
+    acc_plain = torch.zeros((9, n), device="cuda")
+    acc_count = torch.zeros((9, n), device="cuda")
+    stats = torch.zeros(megakernel.K1_STATS, dtype=torch.int64, device="cuda")
+    megakernel.megakernel_accumulate(dev, meta, options, acc_plain, 1, iterations, key,
+                                     record=record)
+    megakernel.megakernel_accumulate(dev, meta, options, acc_count, 1, iterations, key,
+                                     record=record, stats=stats)
+    rounds, live, raygens, raygen_rounds, fetches, atomics, tail = stats.tolist()
+    return dict(rounds=rounds, live=live, raygens=raygens, raygen_rounds=raygen_rounds,
+                fetches=fetches, atomics=atomics, tail=tail, lane_use=live / (32 * rounds),
+                raygen_share=raygens / (32 * rounds), raygen_round_share=raygen_rounds / rounds,
+                pixels_per_atomic=fetches / atomics, tail_share=tail / rounds,
+                counting_build_equal=bool(torch.equal(acc_plain, acc_count)))
 
 
 def k1_ops(meta, options, samples: int, bounces: int) -> tuple[float, float]:
@@ -653,30 +833,90 @@ def main() -> int:
     phase("render", main_path_s=f"{main_path_s:.2f}", k1_launches=k1_launches,
           beauty_mean=f"{beauty.mean():.4f}", denoised_mean=f"{denoised.mean():.4f}")
 
-    # K1 timed as step_many(16) calls it, iterations 1..16 into zeroed accumulators.
+    # K1 timed as step_many(16) calls it, iterations 1..16 into zeroed
+    # accumulators: its time against its bound, its counters, the sweep,
+    # then the same with depth of field.
     dev, meta = parity["cornell"]["dev"], parity["cornell"]["meta"]
     record = megakernel.scene_record(meta, dev.camera)
     acc = torch.zeros((9, RES * RES), device=device)
-    run_k1 = lambda: megakernel.megakernel_accumulate(
-        dev, meta, options, acc, 1, PARITY_ITERS, key, record=record)
-    times = []
-    for _ in range(6):  # the first is a warm-up
-        acc.zero_()
-        times.append(cuda_ms(run_k1))
-    k1_ms = float(np.median(times[1:]))
     samples = RES * RES * PARITY_ITERS
-    bounces, _, _ = ray_bounces(dev, meta, options, range(1, PARITY_ITERS + 1))
-    fp_ops, int_ops = k1_ops(meta, options, samples, bounces)
-    bytes_moved = 2 * acc.numel() * 4 + record.numel() * 4
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = max(fp_ops / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    phase("render", k1_ms_per_launch=f"{k1_ms:.3f}", k1_ms_per_iter=f"{k1_ms / PARITY_ITERS:.3f}",
-          msamples_per_s=f"{samples / k1_ms / 1e3:.1f}", ray_bounces=bounces,
-          bounces_per_sample=f"{bounces / samples:.3f}", fp32_ops=f"{fp_ops:.3e}",
-          int32_ops=f"{int_ops:.3e}", bound_ms=f"{bound_ms:.3f}",
-          bound_by="bytes" if t_bytes > t_ops else "operations",
-          launches_per_iter_batch=1)
+    usage = {k: v for k, v in ptxas_usage(_build.build_log).items() if "k1_kernel" in k}
+    lib = _build.library()
+    k1 = {}
+    for case, opts in (("cornell", options),
+                       ("cornell_dof", dataclasses.replace(options, depth_of_field=True))):
+        run_k1 = lambda: megakernel.megakernel_accumulate(
+            dev, meta, opts, acc, 1, PARITY_ITERS, key, record=record)
+        ms = time_k1(run_k1, acc)
+        bounces, _, _, paths = ray_bounces(dev, meta, opts, range(1, PARITY_ITERS + 1))
+        fp_ops, int_ops = k1_ops(meta, opts, samples, bounces)
+        bytes_moved = 2 * acc.numel() * 4 + record.numel() * 4
+        t_bytes = bytes_moved / HBM_BYTES_PER_S
+        t_ops = max(fp_ops / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
+        bound = 1e3 * max(t_bytes, t_ops)
+        # An SM issues one warp-instruction per clock per sub-partition,
+        # whichever pipe it goes to: all FP32 and INT32 instructions over
+        # the FP32 rate is the floor the issue slots set.
+        issue_ms = 1e3 * (fp_ops + int_ops) / FP32_OPS_PER_S
+        counts = k1_counters(dev, meta, opts, key, record, PARITY_ITERS)
+        live_rel = abs(counts["live"] - bounces) / bounces
+        k1[case] = dict(ms=ms, bound_ms=bound, bound_by="bytes" if t_bytes > t_ops else "operations")
+        phase("render", case=case, k1_ms_per_launch=f"{ms:.3f}",
+              k1_ms_per_iter=f"{ms / PARITY_ITERS:.3f}",
+              msamples_per_s=f"{samples / ms / 1e3:.1f}", ray_bounces=bounces,
+              bounces_per_sample=f"{bounces / samples:.3f}", fp32_ops=f"{fp_ops:.3e}",
+              int32_ops=f"{int_ops:.3e}", bound_ms=f"{bound:.3f}",
+              bound_by=k1[case]["bound_by"], of_bound=f"{bound / ms:.4f}",
+              issue_slot_ms=f"{issue_ms:.3f}", of_issue_slot=f"{issue_ms / ms:.4f}",
+              launches_per_iter_batch=1)
+        phase("render", case=case, counting="k1", warp_rounds=counts["rounds"],
+              live_lane_rounds=counts["live"], live_vs_ray_bounces=f"{live_rel:.3e}",
+              lane_use=f"{counts['lane_use']:.4f}",
+              lockstep_lane_use=f"{lockstep_lane_use(paths):.4f}",
+              raygen_lane_rounds=counts["raygens"], raygen_share=f"{counts['raygen_share']:.4f}",
+              raygen_warp_rounds=counts["raygen_rounds"],
+              raygen_round_share=f"{counts['raygen_round_share']:.4f}",
+              pixel_fetches=counts["fetches"], fetch_atomics=counts["atomics"],
+              pixels_per_atomic=f"{counts['pixels_per_atomic']:.2f}",
+              tail_rounds=counts["tail"], tail_share=f"{counts['tail_share']:.4f}",
+              counting_build_equal=counts["counting_build_equal"])
+        if live_rel >= K1_LIVE_REL or counts["fetches"] != RES * RES \
+                or counts["raygens"] != samples:
+            raise AssertionError(f"K1's counters disagree with the plain paths ({bounces} "
+                                 f"ray-bounces, {samples} samples): {counts}")
+        # The sweep: block sizes, and the resident blocks per SM asked.
+        sweep = {}
+        for threads in K1_BLOCK_SIZES:
+            most = lib.k1_blocks_per_sm(threads, meta.num_geoms, len(meta.mega_faces), 0)
+            if most < 1:
+                raise AssertionError(f"K1's occupancy query failed: {most}")
+            for warps in K1_WARPS_PER_SM:
+                per_sm = min(max(warps * 32 // threads, 1), most)
+                if (threads, per_sm) in sweep:
+                    continue
+                sweep[threads, per_sm] = time_k1(lambda: megakernel.megakernel_accumulate(
+                    dev, meta, opts, acc, 1, PARITY_ITERS, key, record=record, threads=threads,
+                    blocks_per_sm=per_sm), acc, repeats=3)
+        best = min(sweep, key=sweep.get)
+        phase("render", case=case, sweep="k1", best_threads=best[0], best_blocks_per_sm=best[1],
+              best_ms=f"{sweep[best]:.3f}",
+              **{f"ms_{t}x{b}_warps{t * b // 32}": f"{v:.3f}" for (t, b), v in sweep.items()})
+    k1_ms, bound_ms = k1["cornell"]["ms"], k1["cornell"]["bound_ms"]
+    for name, u in usage.items():
+        phase("render", ptxas=name, **u)
+    sass = sass_load_counts()
+    kinds = collections.Counter("box" if g.type == int(GeomType.CUBE) else "sphere"
+                                for g in meta.geoms if g.type in (int(GeomType.CUBE),
+                                                                  int(GeomType.SPHERE)))
+    per_bounce = {where: sum(c * sass[where][k] for k, c in kinds.items()) + meta.num_geoms
+                  + sass[where]["material"] for where in ("global", "shared")}
+    phase("render", sass_loads_per="test", **{f"{where}_{k}": f"{v:g}"
+                                             for where in ("global", "shared")
+                                             for k, v in sass[where].items()},
+          cornell_per_bounce_global=f"{per_bounce['global']:g}",
+          cornell_per_bounce_shared=f"{per_bounce['shared']:g}",
+          note="per bounce: the geoms' tests, one type read each, one material read")
+    phase("render", sass_k1_kernel=sass["k1_kernel"], sass_k1_counting=sass["k1_counting"])
 
     # ---- mesh_parity -------------------------------------------------------------
     mesh_calls, mesh_max_abs = {}, 0.0
@@ -994,8 +1234,8 @@ def main() -> int:
     run_k5()  # warm-up
     k5_ms = float(np.median([cuda_ms(run_k5) for _ in range(3)])) / BOUNCE_ITERS
     k5_plain_ms = k5_parity["cornellShip", "auto"]["plain_ms"]  # per iteration, the same inputs
-    bounces, philox_calls, necessary = ray_bounces(dev, meta, bounce_options,
-                                                   range(1, BOUNCE_ITERS + 1))
+    bounces, philox_calls, necessary, _ = ray_bounces(dev, meta, bounce_options,
+                                                      range(1, BOUNCE_ITERS + 1))
     fp_k1, _ = k1_ops(meta, bounce_options, 0, bounces)  # raygen runs outside K5
     cluster_visits = int(visits.sum())
     nodes, walk_iters, rounds, ended = stats.tolist()
@@ -1128,8 +1368,10 @@ def main() -> int:
         "ms": k1_ms,
         "plain_ms": parity["cornell"]["plain_ms"],
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "bound_by": k1["cornell"]["bound_by"],
         "library_ms": None,
+        "design": "redesigned: persistent lanes with a warp-aggregated pixel queue, a new path "
+                  "as soon as one ends, the scene record in shared memory",
     }]
     for tier, kname, line in (("rows", "k2_mesh_rows", 1109), ("lists", "k3_mesh_lists", 967),
                               ("conds", "k4_mesh_conds", 427)):

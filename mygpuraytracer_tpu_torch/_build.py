@@ -38,7 +38,9 @@ _F = ctypes.c_float
 # C signature of every exported function: (restype, argtypes).
 SIGNATURES = {
     # csrc/megakernel.cu
-    "k1_accumulate": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I, _F, _F, _P]),
+    "k1_accumulate": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I, _F, _F,
+                           _I, _I, _P]),
+    "k1_blocks_per_sm": (_I, [_I, _I, _I, _I]),
     # csrc/mesh_hit.cu
     "mesh_hit": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # csrc/prng.cu

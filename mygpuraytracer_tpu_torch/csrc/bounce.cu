@@ -96,7 +96,7 @@ __global__ void __launch_bounds__(THREADS)
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = static_cast<int>(threadIdx.x) % WARP;
   const bool in_image = p < n;  // threads past n take part in the warp's steps
-  const int num_geoms = static_cast<int>(rec[0]);
+  const RecScene scene{rec, static_cast<int>(rec[0]), 0};  // the geoms; no listed faces
   Draws rng{{key0, key1, static_cast<uint64_t>(n), static_cast<uint64_t>(p)},
             stream_word(seed, static_cast<uint32_t>(p)), static_cast<uint32_t>(p),
             counter != 0, -1, {0u, 0u, 0u, 0u}};
@@ -117,7 +117,7 @@ __global__ void __launch_bounds__(THREADS)
       ended += WARP - __popc(live);
     }
     Hit h{CUDART_INF_F, {0.0f, 0.0f, 0.0f}, -1, false};
-    if (alive) h = scene_hit(rec, num_geoms, 0, s.o, s.d);
+    if (alive) h = scene_hit(scene, s.o, s.d);
 
     // The mesh: the walk over the cluster tree (ops/trace.py::mesh_nearfar_hit).
     Best best = no_face(h.t);
@@ -149,7 +149,7 @@ __global__ void __launch_bounds__(THREADS)
       const float u_choice = rng.uniform(4 + 3 * b);
       const float u1 = rng.uniform(5 + 3 * b);
       const float u2 = rng.uniform(6 + 3 * b);
-      shade(s, h, rec, u_choice, u1, u2);
+      shade(s, h, scene, u_choice, u1, u2);
     }
   }
   if (COUNT && stats != nullptr) {  // one atomic per counter and warp

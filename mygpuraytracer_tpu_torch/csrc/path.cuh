@@ -45,18 +45,34 @@ __device__ __forceinline__ V3 reflect(V3 i, V3 n) {
 }
 __device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
 
-// m: a row-major 3x4 matrix whose 4th column is the translation.
-__device__ __forceinline__ V3 xform_point(const float* m, V3 p) {
-  return {m[0] * p.x + m[1] * p.y + m[2] * p.z + m[3],
-          m[4] * p.x + m[5] * p.y + m[6] * p.z + m[7],
-          m[8] * p.x + m[9] * p.y + m[10] * p.z + m[11]};
-}
-// m: 3 rows of STRIDE floats (4 for a 3x4 matrix, 3 for a 3x3 one).
+// A 3x4 row-major matrix (the 4th column the translation), or a 3x3 one,
+// read as m(row, col). RecRows reads the scene record in global memory
+// (rows STRIDE floats apart); Rows4 holds three float4 rows in registers.
 template <int STRIDE>
-__device__ __forceinline__ V3 xform_dir(const float* m, V3 d) {
-  return {m[0] * d.x + m[1] * d.y + m[2] * d.z,
-          m[STRIDE] * d.x + m[STRIDE + 1] * d.y + m[STRIDE + 2] * d.z,
-          m[2 * STRIDE] * d.x + m[2 * STRIDE + 1] * d.y + m[2 * STRIDE + 2] * d.z};
+struct RecRows {
+  const float* p;
+  __device__ __forceinline__ float operator()(int r, int c) const { return p[r * STRIDE + c]; }
+};
+
+struct Rows4 {
+  float4 row[3];
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    const float4& v = row[r];
+    return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+  }
+};
+
+template <class M>
+__device__ __forceinline__ V3 xform_point(const M& m, V3 p) {
+  return {m(0, 0) * p.x + m(0, 1) * p.y + m(0, 2) * p.z + m(0, 3),
+          m(1, 0) * p.x + m(1, 1) * p.y + m(1, 2) * p.z + m(1, 3),
+          m(2, 0) * p.x + m(2, 1) * p.y + m(2, 2) * p.z + m(2, 3)};
+}
+template <class M>
+__device__ __forceinline__ V3 xform_dir(const M& m, V3 d) {
+  return {m(0, 0) * d.x + m(0, 1) * d.y + m(0, 2) * d.z,
+          m(1, 0) * d.x + m(1, 1) * d.y + m(1, 2) * d.z,
+          m(2, 0) * d.x + m(2, 1) * d.y + m(2, 2) * d.z};
 }
 
 // ---- threefry2x32, 20 rounds (ops/rng.py) ---------------------------------
@@ -155,6 +171,46 @@ __device__ __forceinline__ uint32_t group_word(const Words4& g, uint32_t j) {
   return j == 0 ? g.x : j == 1 ? g.y : j == 2 ? g.z : g.w;
 }
 
+// ---- the scene ------------------------------------------------------------
+// scene_hit and shade read the scene through one of two views with the same
+// members: RecScene reads the record in global memory, as scene_record packs
+// it (K5); megakernel.cu's SharedScene reads K1's copy in shared memory.
+struct Material {
+  V3 color, spec;
+  float spec_ex, refl, refr, ior, emit;
+};
+
+struct Face {
+  V3 v0, e1, e2;
+};
+
+struct RecGeom {
+  const float* g;
+  __device__ __forceinline__ int type() const { return static_cast<int>(g[0]); }
+  __device__ __forceinline__ RecRows<4> inv() const { return {g + G_INV}; }
+  __device__ __forceinline__ RecRows<4> xform() const { return {g + G_XFORM}; }
+  __device__ __forceinline__ RecRows<3> invt() const { return {g + G_INVT}; }
+};
+
+struct RecScene {
+  const float* rec;
+  int num_geoms, num_faces;
+  __device__ __forceinline__ RecGeom geom(int gi) const { return {rec + HEADER + GEOM_STRIDE * gi}; }
+  __device__ __forceinline__ Material material(int gi) const {
+    const float* m = rec + HEADER + GEOM_STRIDE * gi + G_MAT;
+    return {load3(m), load3(m + 3), m[6], m[7], m[8], m[9], m[10]};
+  }
+  __device__ __forceinline__ const float* face_at(int fi) const {
+    return rec + HEADER + GEOM_STRIDE * num_geoms + FACE_STRIDE * fi;
+  }
+  __device__ __forceinline__ Face face(int fi) const {
+    const float* f = face_at(fi);
+    return {load3(f + 1), load3(f + 4), load3(f + 7)};
+  }
+  __device__ __forceinline__ V3 face_normal(int fi) const { return load3(face_at(fi) + 10); }
+  __device__ __forceinline__ int face_geom(int fi) const { return static_cast<int>(face_at(fi)[0]); }
+};
+
 // ---- intersection (ops/trace.py) ------------------------------------------
 struct Hit {
   float t;  // +inf on a miss
@@ -173,9 +229,11 @@ __device__ __forceinline__ void slab(float qo, float qd, float& ta, float& tb, f
 }
 
 // Unit cube [-0.5, 0.5]^3 in object space (intersections.h:48-90).
-__device__ __forceinline__ float box_intersect(const float* g, V3 o, V3 d, V3& normal) {
-  const V3 qo = xform_point(g + G_INV, o);
-  const V3 qd = normalize(xform_dir<4>(g + G_INV, d));
+template <class G>
+__device__ __forceinline__ float box_intersect(const G& g, V3 o, V3 d, V3& normal) {
+  const auto inv = g.inv();
+  const V3 qo = xform_point(inv, o);
+  const V3 qd = normalize(xform_dir(inv, d));
   float tax, tbx, sx, tay, tby, sy, taz, tbz, sz;
   slab(qo.x, qd.x, tax, tbx, sx);
   slab(qo.y, qd.y, tay, tby, sy);
@@ -191,16 +249,18 @@ __device__ __forceinline__ float box_intersect(const float* g, V3 o, V3 d, V3& n
   const V3 ln = {ux ? sx : 0.0f, uy ? sy : 0.0f, uz ? sz : 0.0f};
   const float s = t_loc - HIT_EPS;
   const V3 p_loc = {qo.x + s * qd.x, qo.y + s * qd.y, qo.z + s * qd.z};
-  const V3 p_w = xform_point(g + G_XFORM, p_loc);
-  normal = normalize(xform_dir<3>(g + G_INVT, ln));
+  const V3 p_w = xform_point(g.xform(), p_loc);
+  normal = normalize(xform_dir(g.invt(), ln));
   const V3 op = sub(o, p_w);
   return sqrtf(dot(op, op));
 }
 
 // Sphere of radius 0.5 in object space (intersections.h:102-144).
-__device__ __forceinline__ float sphere_intersect(const float* g, V3 o, V3 d, V3& normal) {
-  const V3 qo = xform_point(g + G_INV, o);
-  const V3 qd = normalize(xform_dir<4>(g + G_INV, d));
+template <class G>
+__device__ __forceinline__ float sphere_intersect(const G& g, V3 o, V3 d, V3& normal) {
+  const auto inv = g.inv();
+  const V3 qo = xform_point(inv, o);
+  const V3 qd = normalize(xform_dir(inv, d));
   const float vd = dot(qo, qd);
   const float radicand = vd * vd - (dot(qo, qo) - 0.25f);
   const float root = sqrtf(fmaxf(radicand, 0.0f));
@@ -212,20 +272,22 @@ __device__ __forceinline__ float sphere_intersect(const float* g, V3 o, V3 d, V3
   const float t_loc = both_pos ? fminf(t1, t2) : fmaxf(t1, t2);
   const float s = t_loc - HIT_EPS;
   const V3 p_loc = {qo.x + s * qd.x, qo.y + s * qd.y, qo.z + s * qd.z};
-  const V3 p_w = xform_point(g + G_XFORM, p_loc);
-  const V3 n = normalize(xform_dir<3>(g + G_INVT, p_loc));
+  const V3 p_w = xform_point(g.xform(), p_loc);
+  const V3 n = normalize(xform_dir(g.invt(), p_loc));
   normal = both_pos ? n : neg(n);
   const V3 op = sub(o, p_w);
   return sqrtf(dot(op, op));
 }
 
 // Nearest hit over geoms then listed faces; the first one wins ties
-// (ops/trace.py primitives_hit).
-__device__ Hit scene_hit(const float* __restrict__ rec, int num_geoms, int num_faces, V3 o, V3 d) {
+// (ops/trace.py primitives_hit). The loops run the same count on every
+// lane, so a warp stays together through them.
+template <class S>
+__device__ __forceinline__ Hit scene_hit(const S& scene, V3 o, V3 d) {
   Hit h{CUDART_INF_F, {0.0f, 0.0f, 0.0f}, -1, false};
-  for (int gi = 0; gi < num_geoms; ++gi) {
-    const float* g = rec + HEADER + GEOM_STRIDE * gi;
-    const int type = static_cast<int>(g[0]);
+  for (int gi = 0; gi < scene.num_geoms; ++gi) {
+    const auto g = scene.geom(gi);
+    const int type = g.type();
     V3 n;
     float t;
     if (type == CUBE) {
@@ -237,10 +299,10 @@ __device__ Hit scene_hit(const float* __restrict__ rec, int num_geoms, int num_f
     }
     if (t < h.t) h = {t, n, gi, false};
   }
-  const float* faces = rec + HEADER + GEOM_STRIDE * num_geoms;
-  for (int fi = 0; fi < num_faces; ++fi) {
-    const float* f = faces + FACE_STRIDE * fi;
-    const V3 v0 = load3(f + 1), e1 = load3(f + 4), e2 = load3(f + 7);
+  int face = -1;
+  for (int fi = 0; fi < scene.num_faces; ++fi) {
+    const Face f = scene.face(fi);
+    const V3 v0 = f.v0, e1 = f.e1, e2 = f.e2;
     const V3 pv = {d.y * e2.z - d.z * e2.y, d.z * e2.x - d.x * e2.z, d.x * e2.y - d.y * e2.x};
     const float det = e1.x * pv.x + e1.y * pv.y + e1.z * pv.z;
     const float inv_det = 1.0f / (fabsf(det) < 1e-12f ? 1e-12f : det);
@@ -251,8 +313,12 @@ __device__ Hit scene_hit(const float* __restrict__ rec, int num_geoms, int num_f
     const float t = (e2.x * qv.x + e2.y * qv.y + e2.z * qv.z) * inv_det;
     const bool ok = (fabsf(det) > 1e-12f) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
                     (t > HIT_EPS);
-    if (ok && t < h.t) h = {t, load3(f + 10), static_cast<int>(f[0]), true};
+    if (ok && t < h.t) {
+      h.t = t;
+      face = fi;
+    }
   }
+  if (face >= 0) h = {h.t, scene.face_normal(face), scene.face_geom(face), true};
   return h;
 }
 
@@ -292,16 +358,17 @@ __device__ __forceinline__ V3 cosine_hemisphere(V3 n, float u1, float u2) {
 }
 
 // One shading round for a live path (remaining > 0).
-__device__ void shade(Path& s, const Hit& h, const float* __restrict__ rec, float u_choice, float u1,
-                      float u2) {
+template <class S>
+__device__ __forceinline__ void shade(Path& s, const Hit& h, const S& scene, float u_choice,
+                                      float u1, float u2) {
   if (h.geom < 0) {  // miss
     s.c = {0.0f, 0.0f, 0.0f};
     s.remaining = 0;
     return;
   }
-  const float* m = rec + HEADER + GEOM_STRIDE * h.geom + G_MAT;
-  const V3 color = load3(m), spec = load3(m + 3);
-  const float spec_ex = m[6], refl = m[7], refr = m[8], ior = m[9], emit = m[10];
+  const Material m = scene.material(h.geom);
+  const V3 color = m.color, spec = m.spec;
+  const float spec_ex = m.spec_ex, refl = m.refl, refr = m.refr, ior = m.ior, emit = m.emit;
   if (emit > 0.0f) {
     s.c = {s.c.x * color.x * emit, s.c.y * color.y * emit, s.c.z * color.z * emit};
     s.remaining = 0;

@@ -2,11 +2,12 @@
 for large untextured meshes.
 
 K1 is the port of ``mygpuraytracer_tpu/render/megakernel.py::_make_kernel``
-(the Pallas kernel that ``megakernel_accumulate`` launches). One thread
-follows one pixel through ``num_iters`` iterations: AA jitter, thin-lens
-DoF, the bounce loop over cubes, spheres and up to 256 listed triangles,
-shading, and color * pi added into the accumulator. The albedo and normal
-AOVs are written at iteration 1. Source: ``csrc/megakernel.cu``.
+(the Pallas kernel that ``megakernel_accumulate`` launches). Each pixel runs
+``num_iters`` iterations: AA jitter, thin-lens DoF, the bounce loop over
+cubes, spheres and up to 256 listed triangles, shading, and color * pi added
+into the accumulator. The albedo and normal AOVs are written at iteration 1.
+Persistent lanes take pixels from a queue and start a new path as soon as
+one ends. Source: ``csrc/megakernel.cu``.
 
 K5 is the port of ``_make_bounce_kernel`` (launched by
 ``bvh_bounce_accumulate``), which the JAX package runs for meshes of more
@@ -53,6 +54,10 @@ HEADER = 16  # [num_geoms, num_faces, camera: pos3 view3 up3 right3 pixel_length
 GEOM_STRIDE = 48  # type, material, xform 3x4, inverse 3x4, inv_transpose 3x3, material 11
 FACE_STRIDE = 16  # geom, v0 3, e1 3, e2 3, unit normal 3, pad 3
 
+# K1's counters: warp rounds, live lane-rounds (hit and shade on a live
+# path), raygen lane-rounds, warp rounds with a raygen, pixel fetches, fetch
+# atomics, warp rounds after the queue ran dry (csrc/megakernel.cu).
+K1_STATS = 7
 # K5's counters: tree nodes, warp traversal iterations, warp bounce rounds,
 # lanes of ended paths over those rounds (csrc/bounce.cu).
 STATS = 4
@@ -129,12 +134,17 @@ def megakernel_accumulate_reference(
 def megakernel_accumulate(
     dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
     start_iteration: int, num_iters: int, base_key: rng.Key,
-    record: torch.Tensor | None = None,
+    record: torch.Tensor | None = None, stats: torch.Tensor | None = None,
+    threads: int = 0, blocks_per_sm: int = 0,
 ) -> torch.Tensor:
     """Accumulate ``num_iters`` iterations from ``start_iteration`` into
     ``acc`` [9, N] float32 (rows: color sum rgb, albedo rgb, normal xyz) in
     one kernel launch on the current stream. ``record`` is
-    :func:`scene_record`, built here when not given."""
+    :func:`scene_record`, built here when not given. ``stats`` (int64
+    [K1_STATS]), if given, selects the counting build and gains its
+    counters. ``threads`` (32 to 256, a multiple of 32) and
+    ``blocks_per_sm`` set the launch for a sweep; 0 takes the kernel's block
+    size and as many blocks as the occupancy query allows."""
     global LAUNCHES
     if acc.device.type == "cpu":
         return megakernel_accumulate_reference(
@@ -152,18 +162,26 @@ def megakernel_accumulate(
         return acc
     if record is None:
         record = scene_record(meta, dev.camera)
-    if record.device != acc.device or record.dtype != torch.float32 or not record.is_contiguous():
-        raise ValueError("record must be a contiguous float32 tensor on acc's device")
+    G, F = meta.num_geoms, len(meta.mega_faces)
+    if record.device != acc.device or record.dtype != torch.float32 or not record.is_contiguous() \
+            or record.numel() != HEADER + GEOM_STRIDE * G + FACE_STRIDE * F:
+        raise ValueError("record must be this scene's scene_record, a contiguous float32 tensor "
+                         "on acc's device")
+    if stats is not None and (stats.device != acc.device or stats.dtype != torch.int64
+                              or tuple(stats.shape) != (K1_STATS,) or not stats.is_contiguous()):
+        raise ValueError(f"stats must be a contiguous int64 [{K1_STATS}] tensor on {acc.device}")
 
     from .._build import library, stream_handle
 
+    queue = torch.empty(1, dtype=torch.int32, device=acc.device)  # zeroed by the launch
     dof = bool(options.depth_of_field and options.lens_radius > 0)
     err = library().k1_accumulate(
-        record.data_ptr(), acc.data_ptr(), n, width, height, meta.trace_depth,
-        int(start_iteration), int(num_iters), base_key[0], base_key[1],
+        record.data_ptr(), acc.data_ptr(), queue.data_ptr(),
+        stats.data_ptr() if stats is not None else None, G, F, n, width, height,
+        meta.trace_depth, int(start_iteration), int(num_iters), base_key[0], base_key[1],
         int(bool(options.antialiasing)), int(dof),
-        float(options.lens_radius), float(options.focal_distance),
-        stream_handle(acc.device),
+        float(options.lens_radius), float(options.focal_distance), int(threads),
+        int(blocks_per_sm), stream_handle(acc.device),
     )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")

@@ -1,6 +1,11 @@
 """K1 on the card against its plain version, for the paths chip_smoke.py
 does not drive: listed mesh faces, depth of field, batches that start past
-iteration 1.
+iteration 1. Besides: block sizes 64/128/256 and grids of other sizes give
+the same accumulators bit for bit (which lane takes which pixel from the
+queue changes nothing), so do repeated launches, and the counting build's
+live lane-rounds are the plain wavefront's ray-bounces within 1e-4 relative
+(a path that branches the other way under the kernel's rounding may bounce
+a different number of times).
 
 Imports torch and the port only, so it runs on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_k1_cuda.py
@@ -18,7 +23,7 @@ import torch
 
 from mygpuraytracer_tpu_torch.config import RenderOptions
 from mygpuraytracer_tpu_torch.ops import rng
-from mygpuraytracer_tpu_torch.render import megakernel
+from mygpuraytracer_tpu_torch.render import megakernel, pathtrace
 from mygpuraytracer_tpu_torch.scene import builtin, load_scene
 from mygpuraytracer_tpu_torch.scene.device_scene import build_device_scene
 
@@ -89,3 +94,55 @@ def test_k1_wrapper_rejects_bad_accumulator():
                 torch.zeros((64, 9), device="cuda").t()):
         with pytest.raises(ValueError):
             megakernel.megakernel_accumulate(dev, meta, opts, bad, 1, 1, rng.make_key(0))
+
+
+def _cornell_glass(device="cuda"):
+    dev, meta = build_device_scene(builtin.cornell_glass(resolution=(RES, RES)), device=device)
+    return dev, meta, RenderOptions(megakernel=True)
+
+
+@pytest.mark.requires_cuda
+def test_k1_launch_shapes_and_repeats_are_bitwise_equal():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+    dev, meta, options = _cornell_glass()
+    key = rng.make_key(7)
+    accs = {}
+    for threads, blocks_per_sm in ((64, 0), (128, 0), (256, 0), (128, 1), (0, 0), (0, 0)):
+        acc = torch.zeros((9, RES * RES), device="cuda")
+        megakernel.megakernel_accumulate(dev, meta, options, acc, 1, 4, key, threads=threads,
+                                         blocks_per_sm=blocks_per_sm)
+        accs.setdefault((threads, blocks_per_sm), []).append(acc)
+    torch.cuda.synchronize()
+    first = accs[64, 0][0]
+    assert bool(torch.isfinite(first).all()) and float(first[0:3].mean()) > 0
+    for runs in accs.values():
+        for acc in runs:
+            assert torch.equal(acc, first)
+
+
+@pytest.mark.requires_cuda
+def test_k1_counting_build_live_lanes_are_plain_ray_bounces(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+    dev, meta, options = _cornell_glass()
+    key, iters, n = rng.make_key(11), 8, RES * RES
+    acc = torch.zeros((9, n), device="cuda")
+    stats = torch.zeros(megakernel.K1_STATS, dtype=torch.int64, device="cuda")
+    megakernel.megakernel_accumulate(dev, meta, options, acc, 1, iters, key, stats=stats)
+    rounds, live, raygens, raygen_rounds, fetches, atomics, tail = stats.tolist()
+    bounces = [0]
+    query = pathtrace.intersect_soa
+
+    def counted(meta_, dev_, o, d, *args, active=None, **kwargs):
+        bounces[0] += n if active is None else int(active.sum())
+        return query(meta_, dev_, o, d, *args, active=active, **kwargs)
+
+    monkeypatch.setattr(pathtrace, "intersect_soa", counted)
+    megakernel.megakernel_accumulate_reference(dev, meta, options, torch.zeros_like(acc), 1,
+                                               iters, key)
+    assert abs(live - bounces[0]) <= 1e-4 * bounces[0]
+    assert raygens == n * iters and fetches == n
+    assert raygens / 32 <= raygen_rounds <= min(raygens, rounds)
+    assert 0 < atomics <= fetches + 32 * rounds and 0 <= tail < rounds
+    assert live <= 32 * rounds

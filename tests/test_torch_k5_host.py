@@ -75,8 +75,29 @@ HOST_STUB = r"""
 #define __restrict__
 #define CUDART_INF_F INFINITY
 typedef void* cudaStream_t;
-constexpr int cudaErrorInvalidValue = 1;
+typedef int cudaError_t;
+constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9;
 inline int cudaGetLastError() { return 0; }
+// The device: HOST_SMS multiprocessors holding HOST_BLOCKS_PER_SM blocks
+// each, so a launch sized by the occupancy query gets a grid small enough
+// that each lane runs several pixels.
+constexpr int HOST_SMS = 1, HOST_BLOCKS_PER_SM = 4;
+enum { cudaDevAttrMultiProcessorCount, cudaFuncAttributeMaxDynamicSharedMemorySize };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = HOST_SMS; return cudaSuccess; }
+template <typename F> cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
+template <typename F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, F, int, size_t) {
+  *v = HOST_BLOCKS_PER_SM;
+  return cudaSuccess;
+}
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t bytes, cudaStream_t) {
+  std::memset(p, v, bytes);
+  return cudaSuccess;
+}
+// Blocks run one after another and so do a block's warps: a barrier holds
+// only in blocks of one warp (the K1 host test launches those).
+inline void __syncthreads() {}
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
@@ -93,8 +114,8 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
-inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
-  const unsigned long long old = *p; *p += v; return old;
+template <typename T> T atomicAdd(T* p, T v) {
+  const T old = *p; *p += v; return old;
 }
 // A warp is 32 lanes on one host thread, each on its own stack (ucontext),
 // taking turns at every warp-wide call: a lane posts its value and passes
@@ -206,7 +227,11 @@ K5_LOOP = (
     r" if (host_broken) return 99;")
 
 
-def _host_build(tmp_path_factory, source: str, launch: re.Pattern, loop: str, name: str):
+def _host_build(tmp_path_factory, source: str, launch: re.Pattern, loop: str, name: str,
+                replace: tuple[tuple[str, str], ...] = ()):
+    """Compile ``source`` for the host under HOST_STUB, its launch rewritten
+    by ``launch`` -> ``loop`` and each (old, new) of ``replace`` applied
+    once; the loaded library."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -214,6 +239,9 @@ def _host_build(tmp_path_factory, source: str, launch: re.Pattern, loop: str, na
     src = src.replace("#include <cuda_runtime.h>", HOST_STUB).replace("#include <math_constants.h>", "")
     src, count = launch.subn(loop, src)
     assert count == 1, f"the kernel launch in {source} changed; update this test"
+    for old, new in replace:
+        assert src.count(old) == 1, f"{old!r} in {source} changed; update this test"
+        src = src.replace(old, new)
     d = tmp_path_factory.mktemp(name)
     (d / f"{name}.cpp").write_text(src)
     so = d / f"lib{name}.so"
