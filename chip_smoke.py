@@ -8,8 +8,9 @@ the 23,328-face spaceship in the Cornell box, textured and bump-mapped
 (scenes/cornellShipTex.txt) and plain (scenes/cornellShip.txt), through the
 wavefront and the mesh tiers' CUDA kernel (K2/K3/K4); and cornellShip
 through the bounce megakernel K5 with the K6 uniforms for its raygen; all
-denoised with the U-Net. Phases, each printing one line with its elapsed
-seconds:
+denoised with the U-Net, the Cornell render also through the OIDN-style
+Filter API and the two apps that call it. Phases, each printing one line
+with its elapsed seconds:
 
 1. device      -- the card's name and power limit (nvidia-smi); fails without CUDA
 2. build       -- one nvcc per csrc/*.cu, in parallel, into the gitignored build
@@ -74,9 +75,24 @@ seconds:
                   over 4 iterations
 10. denoise    -- the fused denoise (bf16 net) against the float32 net on the
                   card, and the float32 net on the card against the CPU
-11. app        -- `python -m mygpuraytracer_tpu_torch.apps.raytrace` in a
+11. filter     -- the OIDN-style Filter API (denoise/filter.py) on the card:
+                  Filter("RT") on the Cornell render's host beauty and albedo,
+                  as the raytrace app calls it, against the fused denoise;
+                  the single pass against the monitored per-tile path at
+                  3840x2160 in float32 (1x2 and 3x4 tiles, in place too);
+                  DeviceBuffers against host arrays at 1080p; the denoise
+                  matrix of apps/benchmark.py and bench.py's standalone
+                  1080p cells timed (filter_matrix: ms per image, tiles,
+                  planned scratch and measured peak memory), the 1080p
+                  execute under torch.profiler (filter_profile); the oidnDenoise
+                  CLI (`python -m mygpuraytracer_tpu_torch.apps.denoise`) on
+                  the render's PFMs, plain, in place with --maxmem 0, and
+                  with -r against that output
+12. app        -- `python -m mygpuraytracer_tpu_torch.apps.raytrace` in a
                   subprocess on cornell and on cornellShipTex, each writing
-                  its four PNGs into a temporary directory
+                  its four PNGs into a temporary directory and denoising
+                  through Filter("RT") (its "Denoise: device=... filter=...
+                  exec=..." line)
 
 It prints a JSON line of per-kernel numbers and, last, one JSON object
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -103,7 +119,8 @@ import torch
 import mygpuraytracer_tpu_torch as port
 from mygpuraytracer_tpu_torch import _build
 from mygpuraytracer_tpu_torch.config import RenderOptions
-from mygpuraytracer_tpu_torch.denoise.unet import no_tf32
+from mygpuraytracer_tpu_torch.denoise import Device, DeviceBuffer
+from mygpuraytracer_tpu_torch.denoise.unet import conv_specs, no_tf32
 from mygpuraytracer_tpu_torch.ops import mesh_hit as mh
 from mygpuraytracer_tpu_torch.ops import prng, rng, trace
 from mygpuraytracer_tpu_torch.ops.trace import intersect_soa
@@ -145,6 +162,39 @@ DENOISE_BF16_MAX_ABS = 0.25
 # Float32 net on the card (cuDNN, TF32 off) vs on the CPU, 64x64 input:
 # summation order only (BASELINE.md fp32 bar, max relative error 1e-4).
 UNET_F32_MAX_REL = 1e-4
+# The Filter API's own paths on the card against each other (single pass
+# against monitored, DeviceBuffer against host arrays, the oidnDenoise CLI
+# against the in-process Filter): the same convolutions on the same windows,
+# so the JAX package's bar for the same comparison, atol 1e-6.
+FILTER_PATH_ATOL = 1e-6
+# Single pass against monitored: (W, H) and (maxMemoryMB, tile counts the
+# plan must give); DeviceBuffer against host arrays: (W, H).
+FILTER_PARITY_SIZE = (3840, 2160)
+FILTER_PARITY_PLANS = ((3000, (1, 2)), (512, (3, 4)))
+FILTER_BUFFER_SIZE = (1920, 1080)
+# The denoise matrix of the JAX package's apps/benchmark.py (name, filter,
+# params, (W, H)), timed through the Filter with DeviceBuffers, and bench.py's
+# standalone 1080p cells (DeviceBuffers; host arrays in and out).
+DENOISE_MATRIX = [
+    ("RT.hdr_alb_nrm", "RT", dict(hdr=True), (1280, 720)),
+    ("RT.ldr_alb_nrm", "RT", dict(hdr=False), (1280, 720)),
+    ("RT.hdr_alb_nrm", "RT", dict(hdr=True), (1920, 1080)),
+    ("RT.ldr_alb_nrm", "RT", dict(hdr=False), (1920, 1080)),
+    ("RT.hdr_alb_nrm", "RT", dict(hdr=True), (3840, 2160)),
+    ("RT.ldr_alb_nrm", "RT", dict(hdr=False), (3840, 2160)),
+    ("RTLightmap.hdr", "RTLightmap", dict(), (1024, 1024)),
+    ("RTLightmap.hdr", "RTLightmap", dict(), (2048, 2048)),
+    ("RTLightmap.hdr", "RTLightmap", dict(), (4096, 4096)),
+]
+MATRIX_RUNS = 4  # timed executes per cell, after one warm-up (apps/benchmark.py's runs)
+# H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), for the U-Net's
+# bound; an FMA counts as two operations, as in the conv FLOP count below.
+BF16_FLOPS_PER_S = 989e12
+# Each conv's resolution divisor in the U-Net (denoise/unet.py forward).
+UNET_CONV_SCALE = {"enc_conv0": 1, "enc_conv1": 1, "enc_conv2": 2, "enc_conv3": 4,
+                   "enc_conv4": 8, "enc_conv5a": 16, "enc_conv5b": 16, "dec_conv4a": 8,
+                   "dec_conv4b": 8, "dec_conv3a": 4, "dec_conv3b": 4, "dec_conv2a": 2,
+                   "dec_conv2b": 2, "dec_conv1a": 1, "dec_conv1b": 1, "dec_conv0": 1}
 
 # H100 SXM rates (NVIDIA data sheet, Hopper white paper): HBM 3.35 TB/s;
 # 128 FP32 lanes and 64 INT32 lanes per SM, 132 SMs, 1.98 GHz boost. The
@@ -756,6 +806,219 @@ def compare_images(a: np.ndarray, b: np.ndarray) -> dict:
             "max_abs": float(d.max()), "share_gt_1e-2": float(np.mean(~agree))}
 
 
+def new_filter(dev: Device, kind: str, images: dict, output, f32: bool = False, **params):
+    """A committed filter on the card over ``images`` (name -> host array
+    or DeviceBuffer); ``f32`` runs the net in float32 in place of bf16."""
+    f = dev.new_filter(kind)
+    if f32:
+        f._network_dtype = lambda: torch.float32
+    for name, img in images.items():
+        f.set_image(name, img)
+    f.set_image("output", output)
+    for k, v in params.items():
+        f.set(k, v)
+    f.commit()
+    return f
+
+
+def filter_output(dev: Device, kind: str, images: dict, monitored=False, inplace=False,
+                  **params) -> np.ndarray:
+    """Denoise copies of host ``images`` once; the output on the host.
+    ``inplace``: the output is the color array."""
+    copies = {n: img.copy() for n, img in images.items()}
+    h, w = copies["color"].shape[:2]
+    out = copies["color"] if inplace else np.zeros((h, w, 3), np.float32)
+    f = new_filter(dev, kind, copies, out, **params)
+    if monitored:
+        f.set_progress_monitor_function(lambda p: True)
+    f.execute()
+    return out
+
+
+def unet_flops(h: int, w: int, in_ch: int) -> int:
+    """Multiply-add FLOPs (2 per FMA) of the U-Net's 3x3 convs on one
+    [h, w] window, both multiples of 16."""
+    return sum(2 * 9 * cin * cout * (h // UNET_CONV_SCALE[name]) * (w // UNET_CONV_SCALE[name])
+               for name, cin, cout in conv_specs(in_ch))
+
+
+def time_filter(f, runs: int) -> float:
+    """ms per execute: host clock around ``runs`` executes between two
+    synchronisations, after one warm-up."""
+    f.execute()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(runs):
+        f.execute()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / runs
+
+
+def filter_phase(dev: Device, beauty: np.ndarray, albedo: np.ndarray,
+                 fused_bf16: torch.Tensor) -> None:
+    """The Filter API on the card: the app's call against the fused
+    denoise, the single pass against the monitored path at 4K, DeviceBuffers
+    against host arrays, the denoise matrix's times and memory, and the
+    oidnDenoise CLI."""
+    buf = lambda a: DeviceBuffer(a, dev.torch_device)
+    # The raytrace app's call: RT, LDR, color + albedo on the host images.
+    app_out = filter_output(dev, "RT", {"color": beauty, "albedo": albedo})
+    diff = np.abs(app_out - fused_bf16.cpu().numpy())
+    phase("filter", check="app_vs_fused_denoise", max_abs=f"{diff.max():.3e}",
+          mean_abs=f"{diff.mean():.3e}", pixels_differing=int((diff.max(axis=-1) > 0).sum()),
+          of=diff.shape[0] * diff.shape[1])
+    if not (np.isfinite(app_out).all() and diff.mean() < DENOISE_BF16_MEAN_ABS
+            and diff.max() < DENOISE_BF16_MAX_ABS):
+        raise AssertionError("the Filter's output disagrees with the fused denoise")
+
+    # Single pass against monitored: RT color + albedo + normal, HDR,
+    # float32, 4K, at the default budget (1x2 tiles) and at 512 MB (3x4).
+    gen = np.random.default_rng(SEED)
+    w, h = FILTER_PARITY_SIZE
+    images = {"color": (gen.random((h, w, 3), np.float32) * 4).astype(np.float32),
+              "albedo": gen.random((h, w, 3), np.float32),
+              "normal": (gen.random((h, w, 3), np.float32) * 2 - 1).astype(np.float32)}
+    for max_mem, want_tiles in FILTER_PARITY_PLANS:
+        kw = dict(f32=True, hdr=True, maxMemoryMB=max_mem)
+        single = filter_output(dev, "RT", images, **kw)
+        monitored = filter_output(dev, "RT", images, monitored=True, **kw)
+        tiles = new_filter(dev, "RT", images, np.zeros((h, w, 3), np.float32), **kw).tile_counts
+        d = float(np.abs(single - monitored).max())
+        checks = {"single_vs_monitored_max_abs": f"{d:.3e}"}
+        ok = d <= FILTER_PATH_ATOL and tiles == want_tiles and np.isfinite(single).all()
+        if max_mem == FILTER_PARITY_PLANS[-1][0]:
+            for mon in (False, True):
+                inplace = filter_output(dev, "RT", images, monitored=mon, inplace=True, **kw)
+                d = float(np.abs(inplace - monitored).max())
+                checks[f"inplace_{'monitored' if mon else 'single'}_max_abs"] = f"{d:.3e}"
+                ok = ok and d <= FILTER_PATH_ATOL
+        phase("filter", check="single_pass_vs_monitored", size=f"{w}x{h}", dtype="float32",
+              max_mem_mb=max_mem, tiles="x".join(map(str, tiles)), **checks)
+        if not ok:
+            raise AssertionError(f"the single pass disagrees with the monitored path: {checks}")
+    del images, single, monitored, inplace
+
+    # DeviceBuffer against host arrays, 1080p, the card's bf16 net.
+    w, h = FILTER_BUFFER_SIZE
+    images = {"color": (gen.random((h, w, 3), np.float32) * 4).astype(np.float32),
+              "albedo": gen.random((h, w, 3), np.float32),
+              "normal": (gen.random((h, w, 3), np.float32) * 2 - 1).astype(np.float32)}
+    host = filter_output(dev, "RT", images, hdr=True)
+    obuf = buf(np.zeros((h, w, 3), np.float32))
+    new_filter(dev, "RT", {n: buf(i) for n, i in images.items()}, obuf,
+               hdr=True).execute()
+    d = float(np.abs(obuf.numpy() - host).max())
+    phase("filter", check="device_buffer_vs_host", size=f"{w}x{h}", max_abs=f"{d:.3e}")
+    if d > FILTER_PATH_ATOL:
+        raise AssertionError(f"DeviceBuffer and host arrays disagree: {d}")
+
+    # The denoise matrix (apps/benchmark.py's inputs: seed 0, inputScale 1),
+    # DeviceBuffers in and out: ms per image, tiles, planned scratch and the
+    # measured peak of the caching allocator.
+    mgen = np.random.default_rng(0)
+    for name, kind, params, (w, h) in DENOISE_MATRIX:
+        bufs = {"color": buf(mgen.random((h, w, 3), np.float32))}
+        if kind == "RT":
+            bufs["albedo"] = buf(mgen.random((h, w, 3), np.float32))
+            bufs["normal"] = buf(mgen.random((h, w, 3), np.float32) * 2 - 1)
+        f = new_filter(dev, kind, bufs, buf(np.zeros((h, w, 3), np.float32)),
+                       inputScale=1.0, **params)
+        ms = time_filter(f, MATRIX_RUNS)
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        f.execute()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        # The bound: the convs on the aligned image once (the tiles' overlap
+        # is the plan's, not the function's), or its f32 buffers read and
+        # written once, whichever takes longer.
+        in_ch = 3 * len(bufs)
+        flops = unet_flops(-(-h // 16) * 16, -(-w // 16) * 16, in_ch)
+        tile_flops = unet_flops(*f.tile_shape, in_ch) * f.tile_counts[0] * f.tile_counts[1]
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, h * w * (in_ch + 3) * 4 / HBM_BYTES_PER_S
+        phase("filter_matrix", bench=f"{name}.{w}x{h}", ms_per_image=f"{ms:.3f}",
+              tiles="x".join(map(str, f.tile_counts)), tile=f"{f.tile_shape[0]}x{f.tile_shape[1]}",
+              planned_scratch_mib=f"{f.scratch_bytes / 2**20:.1f}",
+              peak_mib=f"{peak / 2**20:.1f}",
+              peak_above_resident_mib=f"{(peak - resident) / 2**20:.1f}",
+              gflop=f"{flops / 1e9:.1f}", tile_gflop=f"{tile_flops / 1e9:.1f}",
+              tflop_per_s=f"{tile_flops / ms / 1e9:.1f}",
+              bound_ms=f"{1e3 * max(t_ops, t_bytes):.4f}",
+              bound_by="operations" if t_ops >= t_bytes else "bytes",
+              of_bound=f"{1e3 * max(t_ops, t_bytes) / ms:.4f}")
+        del f, bufs
+
+    # bench.py's standalone 1080p cells: RT hdr + alb + nrm, color x 4,
+    # inputScale 1; DeviceBuffers (8 runs) and host arrays in and out (2 runs).
+    bgen = np.random.default_rng(0)
+    w, h = FILTER_BUFFER_SIZE
+    host_images = {"color": bgen.random((h, w, 3), np.float32) * 4,
+                   "albedo": bgen.random((h, w, 3), np.float32),
+                   "normal": bgen.random((h, w, 3), np.float32) * 2 - 1}
+    f = new_filter(dev, "RT", {n: buf(i) for n, i in host_images.items()},
+                   buf(np.zeros((h, w, 3), np.float32)), hdr=True, inputScale=1.0)
+    standalone_ms = time_filter(f, 8)
+    # Where that execute's time goes: two executes under the profiler.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(2):
+            f.execute()
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t) / 2
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 2e3
+    # cuDNN's NCHW <-> NHWC transposes around its convs, the convs
+    # themselves, and the rest (bias, ReLU, pooling, upsampling, concat,
+    # pack and unpack).
+    kind = lambda k: ("layout" if re.search(r"nchwToNhwc|nhwcToNchw", k) else
+                      "conv" if re.search(r"conv|fprop|implicit_gemm|xmma|cutlass", k, re.I)
+                      else "other")
+    split = collections.Counter()
+    for e in on_card:
+        split[kind(e.key)] += e.self_device_time_total / 2e3
+    phase("filter_profile", bench="RT.hdr_alb_nrm.1920x1080", wall_ms=f"{prof_wall_ms:.3f}",
+          device_busy_ms=f"{busy_ms:.3f}", device_busy_share=f"{busy_ms / prof_wall_ms:.3f}",
+          conv_ms=f"{split['conv']:.3f}", layout_transpose_ms=f"{split['layout']:.3f}",
+          other_ms=f"{split['other']:.3f}", kernels=sum(e.count for e in on_card) // 2)
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]:
+        print(f"    device {e.self_device_time_total / 2e3:9.3f} ms/execute "
+              f"x{e.count // 2:4d}  {e.key[:90]}", flush=True)
+    f = new_filter(dev, "RT", host_images, np.zeros((h, w, 3), np.float32), hdr=True,
+                   inputScale=1.0)
+    hostio_ms = time_filter(f, 2)
+    phase("filter_matrix", denoise_standalone_1080p_ms=f"{standalone_ms:.3f}",
+          denoise_standalone_1080p_hostio_ms=f"{hostio_ms:.3f}")
+
+    # The oidnDenoise CLI on the render's beauty and albedo.
+    from mygpuraytracer_tpu_torch.utils.image_io import load_image, write_pfm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_pfm(os.path.join(tmp, "beauty.pfm"), beauty)
+        write_pfm(os.path.join(tmp, "albedo.pfm"), albedo)
+        common = [sys.executable, "-m", "mygpuraytracer_tpu_torch.apps.denoise",
+                  "--device", str(dev.torch_device), "--ldr", os.path.join(tmp, "beauty.pfm"),
+                  "--alb", os.path.join(tmp, "albedo.pfm")]
+        inplace_pfm = os.path.join(tmp, "inplace.pfm")
+        runs = {"plain": ["-o", os.path.join(tmp, "out.pfm")],
+                "inplace": ["--inplace", "--maxmem", "0", "-o", inplace_pfm],
+                "ref": ["--inplace", "--maxmem", "0", "-r", inplace_pfm]}
+        for label, extra in runs.items():
+            proc = subprocess.run(common + extra, capture_output=True, text=True, timeout=300,
+                                  cwd=HERE)
+            lines = [ln.strip().split("\r")[-1] for ln in proc.stdout.strip().splitlines()]
+            fields = {"rc": proc.returncode, "out": repr(" | ".join(lines[-3:]))}
+            if label == "plain" and proc.returncode == 0:
+                d_cli = float(np.abs(load_image(os.path.join(tmp, "out.pfm")) - app_out).max())
+                fields["vs_in_process_max_abs"] = f"{d_cli:.3e}"
+            phase("filter", check=f"oidn_denoise_cli_{label}", **fields)
+            if proc.returncode != 0:
+                raise AssertionError(f"oidnDenoise CLI ({label}) failed:\n{proc.stdout}\n"
+                                     f"{proc.stderr}")
+            if label == "plain" and d_cli > FILTER_PATH_ATOL:
+                raise AssertionError(f"the CLI's output differs from the Filter's: {d_cli}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -1340,6 +1603,11 @@ def main() -> int:
             and rel < UNET_F32_MAX_REL and torch.isfinite(bf16).all()):
         raise AssertionError("denoiser outputs disagree beyond the stated tolerances")
 
+    # ---- filter: the OIDN-style Filter API on the card ------------------------------------
+    fdev = Device()
+    fdev.commit()
+    filter_phase(fdev, renderer.beauty(), renderer.albedo_image(), bf16)
+
     # ---- app ------------------------------------------------------------------------
     for scene_arg, iters in (("cornell", 32), ("scenes/cornellShipTex.txt", 4)):
         with tempfile.TemporaryDirectory() as out_dir:
@@ -1354,6 +1622,9 @@ def main() -> int:
                   out=repr(" | ".join(tail)))
             if proc.returncode != 0:
                 raise AssertionError(f"app failed:\n{proc.stdout}\n{proc.stderr}")
+            if not re.search(r"^Denoise: device=[\d.]+ms filter=[\d.]+ms exec=[\d.]+ms$",
+                             proc.stdout, re.M):
+                raise AssertionError(f"app did not denoise through the Filter:\n{proc.stdout}")
             for suffix in ("samp.png", "albedo.png", "input.png", "output.png"):
                 if sum(p.endswith(suffix) for p in pngs) != 1:
                     raise AssertionError(f"app did not write one *{suffix}: {pngs}")

@@ -10,9 +10,11 @@ path:
                 kernel), texel fetches
 - ``render``  : camera rays, shading, the wavefront sample, the K1 CUDA
                 kernel that runs whole iterations, the Renderer
-- ``utils``   : PNG read and write on zlib alone
-- ``denoise`` : TZA weights, transfer functions, the U-Net as an nn.Module
-- ``apps``    : the ``raytrace`` command line
+- ``utils``   : PNG read and write on zlib alone; PFM, HDR, EXR and NPY I/O
+- ``denoise`` : TZA weights, transfer functions, the U-Net as an nn.Module,
+                the OIDN-style Device/Filter API with tiled execute and
+                device-resident DeviceBuffers
+- ``apps``    : the ``raytrace`` and ``denoise`` (oidnDenoise) command lines
 - ``csrc``    : hand-written CUDA C++ for sm_90a, built by ``_build.py``
 
 It imports torch and numpy, never jax nor the JAX package. Entry points take

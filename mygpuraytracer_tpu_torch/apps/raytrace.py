@@ -14,11 +14,8 @@ with the reference's horizontal mirror (img.setPixel(width-1-x, ...)).
 Primitive scenes and meshes of at most 256 faces render through the K1
 kernel on CUDA; larger meshes, textured and bump-mapped ones included
 (e.g. scenes/cornellShipTex.txt), through the wavefront and the mesh tiers'
-kernel (``--mesh-tier``, ``--mesh-sort``, ``--winner-table``).
-
-The denoiser runs on the device through the fused path
-(render/denoise_fused.py: RT filter, LDR, color + albedo, ``rt_ldr_alb``),
-which computes what the JAX app's Filter-API call computes for this case.
+kernel (``--mesh-tier``, ``--mesh-sort``, ``--winner-table``). The beauty
+is denoised through the Filter API on the same device (``denoise_beauty``).
 """
 
 from __future__ import annotations
@@ -76,13 +73,39 @@ def mirror_x(img: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(img[:, ::-1])
 
 
+def denoise_beauty(beauty: np.ndarray, albedo: np.ndarray, device="cuda"):
+    """CPUdenoise equivalent (main.cpp:167-218): RT filter, LDR,
+    color + albedo, on ``device``; returns (output, timings dict)."""
+    from ..denoise import Device
+
+    timings = {}
+    t0 = time.perf_counter()
+    dev = Device(str(device))
+    dev.commit()
+    timings["device_init_ms"] = (time.perf_counter() - t0) * 1000
+
+    t0 = time.perf_counter()
+    f = dev.new_filter("RT")
+    f.set_image("color", beauty.astype(np.float32))
+    f.set_image("albedo", albedo.astype(np.float32))
+    output = np.zeros_like(beauty, np.float32)
+    f.set_image("output", output)
+    f.commit()
+    timings["filter_init_ms"] = (time.perf_counter() - t0) * 1000
+
+    t0 = time.perf_counter()
+    f.execute()  # copies the result to the host: waits for the device
+    timings["denoise_ms"] = (time.perf_counter() - t0) * 1000
+    timings["random_weights"] = f.using_random_weights
+    return output, timings
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
 
     from ..config import RenderOptions
     from ..render import Renderer
-    from ..render.denoise_fused import denoise_accumulator, load_denoiser
     from ..utils.png import write_png
 
     device = torch.device(args.device)
@@ -126,12 +149,10 @@ def main(argv=None) -> int:
     write_png(f"{prefix}albedo.png", mirror_x(albedo))
     write_png(f"{prefix}input.png", mirror_x(beauty))
     if options.ai_denoise:
-        t0 = time.perf_counter()
-        net, random_weights = load_denoiser("rt_ldr_alb", device)
-        output = denoise_accumulator(r.acc[0:3], r.acc[3:6], r.iteration, net,
-                                     r.meta.resolution).cpu().numpy()
-        log(f"Denoise: {(time.perf_counter() - t0) * 1e3:.1f}ms"
-            + (" [RANDOM WEIGHTS]" if random_weights else ""))
+        output, tm = denoise_beauty(beauty, albedo, device)
+        log(f"Denoise: device={tm['device_init_ms']:.1f}ms "
+            f"filter={tm['filter_init_ms']:.1f}ms exec={tm['denoise_ms']:.1f}ms"
+            + (" [RANDOM WEIGHTS — provide real .tza for quality]" if tm["random_weights"] else ""))
         write_png(f"{prefix}output.png", mirror_x(output))
     log(f"Saved outputs: {prefix}*.png")
     return 0

@@ -1,7 +1,8 @@
 """Transfer functions, sanitization and autoexposure for the denoiser.
 
 Torch counterparts of ``mygpuraytracer_tpu/denoise/color.py`` (core/color.ispc:
-sRGB and PU transfers with HDR normalization; core/color.cpp:33-84:
+linear, sRGB, PU and Log transfers with HDR normalization, and the transfer
+objects the Filter API scales its inputs and outputs with; core/color.cpp:33-84:
 autoexposure as a 16x-downsampled log2-mean of luminance with key 0.18).
 Constants are the published PU2-fit values [Aydin et al. 2008].
 """
@@ -34,6 +35,7 @@ PU_X0 = 2.23151711e-03
 PU_X1 = 3.70974749e-01
 
 _PU_NORM = 1.0 / (PU_E * math.log(HDR_Y_MAX + PU_F) + PU_G)
+_LOG_NORM = 1.0 / math.log(HDR_Y_MAX + 1.0)
 
 
 def luminance(rgb: torch.Tensor) -> torch.Tensor:
@@ -78,6 +80,72 @@ def pu_inverse(x):
         torch.where(x <= PU_X1,
                     torch.pow(torch.clamp_min((x - PU_D) / PU_B, 1e-38), 1.0 / PU_C),
                     torch.exp((x - PU_G) / PU_E) - PU_F))
+
+
+class TransferFunction:
+    """Forward/inverse transfer with input/output scaling (core/color.h).
+
+    ``input_scale`` is the autoexposure (or the user's inputScale), a float
+    or a 0-d tensor; ``output_scale`` is its reciprocal, applied after the
+    inverse transfer.
+    """
+
+    kind = "linear"
+
+    def __init__(self, input_scale=1.0):
+        self.input_scale = input_scale
+
+    @property
+    def output_scale(self):
+        return 1.0 / self.input_scale
+
+    def forward(self, y):
+        return y
+
+    def inverse(self, x):
+        return x
+
+
+class SRGBTransfer(TransferFunction):
+    kind = "srgb"
+
+    def forward(self, y):
+        return srgb_forward(y)
+
+    def inverse(self, x):
+        return srgb_inverse(x)
+
+
+class PUTransfer(TransferFunction):
+    kind = "pu"
+
+    def forward(self, y):
+        return pu_forward(y)
+
+    def inverse(self, x):
+        return pu_inverse(x)
+
+
+class LogTransfer(TransferFunction):
+    """log(y + 1), normalized so that HDR_Y_MAX maps to 1 (RTLightmap's hdr)."""
+
+    kind = "log"
+
+    def forward(self, y):
+        return torch.log(y + 1.0) * _LOG_NORM
+
+    def inverse(self, x):
+        return torch.exp(x / _LOG_NORM) - 1.0
+
+
+def make_transfer(kind: str, input_scale=1.0) -> TransferFunction:
+    cls = {
+        "linear": TransferFunction,
+        "srgb": SRGBTransfer,
+        "pu": PUTransfer,
+        "log": LogTransfer,
+    }[kind]
+    return cls(input_scale)
 
 
 def autoexposure(image: torch.Tensor, key: float = 0.18, k: int = 16,

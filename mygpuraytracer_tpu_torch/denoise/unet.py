@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 UNET_ALIGNMENT = 16  # images padded to multiples of this (model.py:85, unet.h:22)
+UNET_RECEPTIVE_FIELD = 174  # unet.h:21 (defines the tiling overlap)
 
 _EC1, _EC2, _EC3, _EC4, _EC5 = 32, 48, 64, 80, 96
 _DC4, _DC3, _DC2, _DC1A, _DC1B = 112, 96, 64, 64, 32

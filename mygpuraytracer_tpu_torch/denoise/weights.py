@@ -67,3 +67,9 @@ def load_default_params(name: str) -> tuple[dict, bool]:
     seed = zlib.crc32(name.encode()) % (2**31)
     _cache[name] = (init_unet_tensors(WEIGHTS_CHANNELS[name], seed=seed), True)
     return _cache[name]
+
+
+def load_params_from_blob(blob: bytes) -> tuple[dict, bool]:
+    """User-provided weights (``Filter.set_data("weights", blob)``): the
+    TZA archive's tensors, as ``load_default_params`` returns them."""
+    return read_tza(blob), False

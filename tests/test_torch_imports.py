@@ -58,7 +58,10 @@ def test_source_names_no_jax(path):
 def test_scan_covers_the_mesh_path():
     for module in ("mygpuraytracer_tpu_torch.ops.mesh_hit", "mygpuraytracer_tpu_torch.ops.trace",
                    "mygpuraytracer_tpu_torch.scene.native_loader",
-                   "mygpuraytracer_tpu_torch.utils.png", "mygpuraytracer_tpu_torch.ops.prng"):
+                   "mygpuraytracer_tpu_torch.utils.png", "mygpuraytracer_tpu_torch.ops.prng",
+                   "mygpuraytracer_tpu_torch.denoise.filter", "mygpuraytracer_tpu_torch.utils.exr",
+                   "mygpuraytracer_tpu_torch.utils.image_io",
+                   "mygpuraytracer_tpu_torch.apps.denoise"):
         assert module in MODULES
     for path in ("mygpuraytracer_tpu_torch/csrc/mesh_hit.cu",
                  "mygpuraytracer_tpu_torch/csrc/megakernel.cu",
@@ -94,6 +97,13 @@ def test_entry_points_default_to_cuda():
 
     assert RenderOptions().mesh_pallas is None  # None: the mesh kernel on CUDA tensors
     assert _default(intersect_soa, "mesh_pallas") is None
+    from mygpuraytracer_tpu_torch.apps import denoise
+    from mygpuraytracer_tpu_torch.denoise import Device, DeviceBuffer
+
+    assert _default(Device.__init__, "device_type") == "default"  # CUDA, no fallback
+    assert _default(DeviceBuffer.__init__, "device") == "cuda"
+    assert _default(raytrace.denoise_beauty, "device") == "cuda"
+    assert denoise.parse_args(["--ldr", "x.pfm"]).device == "cuda"
 
 
 def test_chip_smoke_refuses_without_cuda():
