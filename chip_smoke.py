@@ -50,7 +50,21 @@ with its elapsed seconds:
                   traversal lane use and leaf rounds (mesh_time), and two
                   iterations under torch.profiler (mesh_profile): device busy
                   share and the kernels that take the device time
-7. prng        -- K6 against its plain version bit for bit at [4, N] and
+7. options     -- the wavefront's render options and the Renderer surface:
+                  BASELINE config #3 (cornell_dof_cache_sort: DoF, AA off,
+                  the wavefront) with each sort form and with the sort off,
+                  bitwise equal, ms per iteration, and one iteration of each
+                  under torch.profiler (kernels, device time, the sort's
+                  share); cornellShipTex sorted and unsorted under the app's
+                  options, bitwise, with K2's launches per iteration equal;
+                  the first-bounce cache on and off (AA off) on both scenes,
+                  bitwise, with the bounce-0 queries and K2 launches
+                  counted; the dir AOV's bounds (K1 not launched under
+                  megakernel=True) and the directional RTLightmap filter on
+                  it; move_camera against a fresh Renderer (K1); the
+                  benchmark app (apps/benchmark.py --mode all --json) in a
+                  subprocess, 13 entries
+8. prng        -- K6 against its plain version bit for bit at [4, N] and
                   [28, N] for three seeds; its values on the 2^-24 grid with
                   U[0,1)'s mean and variance; K6 timed beside torch.rand in
                   turns under three yardsticks: one call at a time (the
@@ -58,11 +72,11 @@ with its elapsed seconds:
                   included), bursts of back-to-back calls, and the device
                   time of calls queued behind other work (the kernel alone);
                   at [4, N] the host cost per call of the wrapper's pieces
-8. k5_parity   -- K5 against its plain version (the wavefront over the plain
+9. k5_parity   -- K5 against its plain version (the wavefront over the plain
                   walk) on the main path's inputs: cornellShip and the
                   open-sky shipOnly at 800x800, depth 8, seed 0, its first 2
                   iterations, under rng "threefry" and "auto"
-9. bounce_render -- the K5 main path: Renderer(megakernel, bounce_megakernel,
+10. bounce_render -- the K5 main path: Renderer(megakernel, bounce_megakernel,
                   rng="auto").render_denoised of cornellShip with the K5 and
                   K6 launches counted; one counting launch per iteration
                   (cluster visits, tree nodes, warp traversal iterations,
@@ -73,9 +87,9 @@ with its elapsed seconds:
                   visits' beside it); two iterations under torch.profiler; its
                   image against the wavefront's (mesh kernel, same rng)
                   over 4 iterations
-10. denoise    -- the fused denoise (bf16 net) against the float32 net on the
+11. denoise    -- the fused denoise (bf16 net) against the float32 net on the
                   card, and the float32 net on the card against the CPU
-11. filter     -- the OIDN-style Filter API (denoise/filter.py) on the card:
+12. filter     -- the OIDN-style Filter API (denoise/filter.py) on the card:
                   Filter("RT") on the Cornell render's host beauty and albedo,
                   as the raytrace app calls it, against the fused denoise;
                   the single pass against the monitored per-tile path at
@@ -88,11 +102,12 @@ with its elapsed seconds:
                   CLI (`python -m mygpuraytracer_tpu_torch.apps.denoise`) on
                   the render's PFMs, plain, in place with --maxmem 0, and
                   with -r against that output
-12. app        -- `python -m mygpuraytracer_tpu_torch.apps.raytrace` in a
+13. app        -- `python -m mygpuraytracer_tpu_torch.apps.raytrace` in a
                   subprocess on cornell and on cornellShipTex, each writing
                   its four PNGs into a temporary directory and denoising
                   through Filter("RT") (its "Denoise: device=... filter=...
-                  exec=..." line)
+                  exec=..." line), and on cornellShipTex with --no-antialias
+                  --sort-by-material --save-normal (five PNGs)
 
 It prints a JSON line of per-kernel numbers and, last, one JSON object
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -125,7 +140,7 @@ from mygpuraytracer_tpu_torch.ops import mesh_hit as mh
 from mygpuraytracer_tpu_torch.ops import prng, rng, trace
 from mygpuraytracer_tpu_torch.ops.trace import intersect_soa
 from mygpuraytracer_tpu_torch.ops.vec3 import Vec3
-from mygpuraytracer_tpu_torch.render import Renderer, megakernel
+from mygpuraytracer_tpu_torch.render import Renderer, megakernel, pathtrace
 from mygpuraytracer_tpu_torch.render.camera import generate_camera_rays
 from mygpuraytracer_tpu_torch.render.denoise_fused import denoise_accumulator, load_denoiser
 from mygpuraytracer_tpu_torch.render.pathtrace import num_rng_streams, render_sample
@@ -263,6 +278,20 @@ MESH_ITERS = 16  # the main path: one render_denoised of 16 iterations
 MESH_TIER_ITERS = 2  # the lists and conds tiers' own main-path runs
 MESH_IMAGE_ITERS = 4  # kernel against plain tier, image of 4 iterations
 PROFILE_ITERS = 2  # iterations under torch.profiler
+# Phase options: the wavefront's render options and the Renderer surface.
+# BASELINE config #3 (apps/benchmark.py cornell_dof_cache_sort): DoF, the
+# cache (which DoF switches off), the sort, AA off, the wavefront.
+BASELINE3 = dict(depth_of_field=True, cache_first_bounce=True, sort_by_material=True,
+                 antialiasing=False, megakernel=False)
+SORT_IMPLS = ("fused", "perm", "argsort")
+OPTIONS_ITERS = 16  # cornell_dof_cache_sort, dir_aov, move_camera
+OPTIONS_MESH_ITERS = 2  # cornellShipTex with the sort on and off
+CACHE_ITERS = 4  # the first-bounce cache on and off
+# dir_image's bounds (tests/test_dir_aov.py): normalized mean directions,
+# and a direction on more than this share of the Cornell box's pixels.
+DIR_NORM_MAX = 1.0 + 1e-5
+DIR_COVERAGE = 0.3
+BENCH_ENTRIES = 13  # 4 render configs (cornellObj has no builtin) + 9 denoise cells
 
 T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1019,6 +1048,240 @@ def filter_phase(dev: Device, beauty: np.ndarray, albedo: np.ndarray,
                 raise AssertionError(f"the CLI's output differs from the Filter's: {d_cli}")
 
 
+def timed_iterations(r: Renderer, iters: int) -> float:
+    """ms per iteration of ``r.step_many(iters)`` from a reset, by CUDA
+    events, after one warm-up iteration (the accumulators then hold the
+    timed run's ``iters`` iterations)."""
+    r.step()
+    r.reset()
+    return cuda_ms(lambda: r.step_many(iters)) / iters
+
+
+def profiled_step(r: Renderer) -> tuple[list, float]:
+    """One more iteration of ``r`` under torch.profiler, recording the
+    card's activity only (a smaller trace to reduce than with the CPU's):
+    (the kernels that ran on the card, device-busy ms)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        r.step()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        raise AssertionError("the profiler recorded no kernel on the card")
+    return on_card, sum(e.self_device_time_total for e in on_card) / 1e3
+
+
+def device_ms(events, *words) -> float:
+    """Device ms of the kernels whose name holds one of ``words``."""
+    return sum(e.self_device_time_total for e in events
+               if any(w in e.key.lower() for w in words)) / 1e3
+
+
+@contextlib.contextmanager
+def counting_bounce0_queries():
+    """Count the wavefront's bounce-0 scene queries (the calls of
+    ``intersect_soa`` without an ``active`` mask) inside the block."""
+    count = [0]
+    orig = pathtrace.intersect_soa
+
+    def wrapper(*args, active=None, **kwargs):
+        count[0] += active is None
+        return orig(*args, active=active, **kwargs)
+
+    with patched(pathtrace, "intersect_soa", wrapper):
+        yield count
+
+
+def require_equal(case: str, a: torch.Tensor, b: torch.Tensor, **labels) -> None:
+    """Fail unless ``a`` and ``b`` are bitwise equal; print the count and the
+    largest difference first."""
+    if torch.equal(a, b):
+        return
+    d = (a - b).abs()
+    phase("options", case=case, check="bitwise", equal=False, **labels,
+          differing=int((a != b).sum()), max_abs=f"{float(d.max()):.3e}")
+    raise AssertionError(f"{case}: {labels} differs from the reference run")
+
+
+def options_phase(device) -> None:
+    """The wavefront's options and the Renderer surface on the card: the
+    material sort (each form) and the first-bounce cache bitwise against the
+    plain wavefront, the dir AOV within its bounds and through the
+    directional RTLightmap filter, move_camera against a fresh Renderer, and
+    the benchmark app."""
+    # ---- case=cornell_dof_cache_sort: BASELINE config #3 ----
+    scene = lambda: cornell_box(resolution=(RES, RES), depth=DEPTH)
+    runs = {}
+    for impl in (None, *SORT_IMPLS):
+        opts = (dict(BASELINE3, sort_by_material=False) if impl is None
+                else dict(BASELINE3, sort_impl=impl))
+        r = Renderer(scene(), RenderOptions(**opts), seed=SEED, device=device)
+        if r.use_megakernel or r.options.first_bounce_cache_active:
+            raise AssertionError(f"cornell_dof_cache_sort: unexpected route {r.options}")
+        runs[impl] = (timed_iterations(r, OPTIONS_ITERS), r.acc.clone(), *profiled_step(r))
+    # The wall share by subtraction drowns in the host's spread (one call can
+    # read +-10%); the profiled iteration's kernels and device time do not.
+    off_ms, off_acc, off_events, off_busy = runs[None]
+    off_kernels = sum(e.count for e in off_events)
+    phase("options", case="cornell_dof_cache_sort", sort="off", iterations=OPTIONS_ITERS,
+          ms_per_iter=f"{off_ms:.2f}", msamples_per_s=f"{RES * RES / off_ms / 1e3:.3f}",
+          cache_active=False, kernels_per_iter=off_kernels,
+          device_busy_ms_per_iter=f"{off_busy:.2f}")
+    for impl in SORT_IMPLS:
+        ms, acc, events, busy = runs[impl]
+        require_equal("cornell_dof_cache_sort", acc, off_acc, sort_impl=impl)
+        kernels = sum(e.count for e in events)
+        phase("options", case="cornell_dof_cache_sort", sort_impl=impl,
+              iterations=OPTIONS_ITERS, ms_per_iter=f"{ms:.2f}",
+              msamples_per_s=f"{RES * RES / ms / 1e3:.3f}",
+              sort_share_wall=f"{1 - off_ms / ms:.3f}", kernels_per_iter=kernels,
+              sort_share_kernels=f"{1 - off_kernels / kernels:.3f}",
+              device_busy_ms_per_iter=f"{busy:.2f}",
+              sort_share_device=f"{1 - off_busy / busy:.3f}",
+              sort_kernels_ms=f"{device_ms(events, 'sort', 'radix'):.3f}",
+              bitwise_vs_unsorted=True)
+
+    # ---- case=cornellShipTex_sort: the app's resolved options, K2 counted ----
+    ship = {}
+    for sort in (False, True):
+        r = Renderer(mesh_scene("cornellShipTex"), app_options(sort_by_material=sort),
+                     seed=SEED, device=device)
+        if r.use_megakernel or (r.options.mesh_tier, r.options.mesh_sort,
+                                r.options.winner_table) != ("rows", "need", "oct"):
+            raise AssertionError(f"cornellShipTex_sort: unexpected route {r.options}")
+        with patched(trace, "mesh_intersect_soa", refuse):
+            r.step()
+            r.reset()
+            mh.LAUNCHES = 0
+            ms = cuda_ms(lambda: r.step_many(OPTIONS_MESH_ITERS)) / OPTIONS_MESH_ITERS
+            ship[sort] = (ms, mh.LAUNCHES / OPTIONS_MESH_ITERS, r.acc.clone(), r)
+    require_equal("cornellShipTex_sort", ship[True][2], ship[False][2], sort_impl="fused")
+    if ship[True][1] != ship[False][1] or ship[True][1] <= 0:
+        raise AssertionError(f"cornellShipTex_sort: K2 launches per iteration {ship[True][1]} "
+                             f"sorted against {ship[False][1]} unsorted")
+    for sort in (False, True):
+        phase("options", case="cornellShipTex_sort", sort="fused" if sort else "off",
+              iterations=OPTIONS_MESH_ITERS, ms_per_iter=f"{ship[sort][0]:.1f}",
+              msamples_per_s=f"{RES * RES / ship[sort][0] / 1e3:.3f}",
+              k2_launches_per_iter=f"{ship[sort][1]:g}", bitwise_vs_unsorted=True)
+    # Where the sort's time goes: one more iteration of each under torch.profiler.
+    for sort in (False, True):
+        events, busy = profiled_step(ship[sort][3])
+        phase("options", case="cornellShipTex_sort", profile="fused" if sort else "off",
+              kernels_per_iter=sum(e.count for e in events), device_busy_ms_per_iter=f"{busy:.1f}",
+              mesh_kernel_ms_per_iter=f"{device_ms(events, 'mesh_hit'):.2f}",
+              sort_kernels_ms_per_iter=f"{device_ms(events, 'sort', 'radix'):.2f}",
+              gather_ms_per_iter=f"{device_ms(events, 'gather', 'index'):.2f}")
+
+    # ---- case=first_bounce_cache: AA and DoF off, the cache on and off ----
+    for name in ("cornell", "cornellShipTex"):
+        cache_runs = {}
+        for cache in (True, False):
+            if name == "cornell":
+                r = Renderer(scene(), RenderOptions(antialiasing=False, megakernel=False,
+                                                    cache_first_bounce=cache),
+                             seed=SEED, device=device)
+            else:
+                r = Renderer(mesh_scene(name), app_options(antialiasing=False,
+                                                            cache_first_bounce=cache),
+                             seed=SEED, device=device)
+            if r.use_megakernel or r.options.first_bounce_cache_active != cache:
+                raise AssertionError(f"first_bounce_cache: unexpected route {r.options}")
+            r.step()
+            r.reset()
+            launches, times = [], []
+            with counting_bounce0_queries() as queries:
+                for _ in range(CACHE_ITERS):
+                    mh.LAUNCHES = 0
+                    times.append(cuda_ms(r.step))
+                    launches.append(mh.LAUNCHES)
+            cache_runs[cache] = (queries[0], launches, times, r.acc.clone())
+        require_equal("first_bounce_cache", cache_runs[True][3], cache_runs[False][3], scene=name)
+        for cache in (True, False):
+            queries, launches, times, _ = cache_runs[cache]
+            phase("options", case="first_bounce_cache", scene=name,
+                  cache="on" if cache else "off", iterations=CACHE_ITERS,
+                  bounce0_queries=queries, k2_launches_per_iter="/".join(map(str, launches)),
+                  ms_per_iter_first=f"{times[0]:.1f}",
+                  ms_per_iter_later=f"{np.mean(times[1:]):.1f}", bitwise_vs_off=True)
+        (q_on, l_on, _, _), (q_off, l_off, _, _) = cache_runs[True], cache_runs[False]
+        if (q_on, q_off) != (1, CACHE_ITERS):
+            raise AssertionError(f"first_bounce_cache {name}: {q_on} bounce-0 queries with the "
+                                 f"cache, {q_off} without, over {CACHE_ITERS} iterations")
+        if name == "cornellShipTex" and not (
+                l_on[0] == l_off[0] > 0
+                and all(a == b - 1 for a, b in zip(l_on[1:], l_off[1:]))):
+            raise AssertionError(f"first_bounce_cache: K2 launches {l_on} with the cache, "
+                                 f"{l_off} without")
+
+    # ---- case=dir_aov: the wavefront's dir AOV; the megakernel route skipped ----
+    dir_runs = {}
+    for mega in (False, True):
+        r = Renderer(scene(), RenderOptions(dir_aov=True, megakernel=mega), seed=SEED,
+                     device=device)
+        megakernel.LAUNCHES = 0
+        t = time.perf_counter()
+        r.render(iterations=OPTIONS_ITERS)
+        torch.cuda.synchronize()
+        dir_runs[mega] = (time.perf_counter() - t, megakernel.LAUNCHES, r)
+    r = dir_runs[False][2]
+    require_equal("dir_aov", dir_runs[True][2].dir_acc, r.dir_acc, megakernel=True)
+    img = r.dir_image()
+    norms = np.linalg.norm(img, axis=-1)
+    coverage = float((np.abs(img).sum(-1) > 1e-6).mean())
+    fdev = Device()
+    fdev.commit()
+    out = np.zeros_like(img)
+    f = new_filter(fdev, "RTLightmap", {"color": img}, out, directional=True)
+    filter_ms = time_filter(f, 4)
+    phase("options", case="dir_aov", iterations=OPTIONS_ITERS,
+          render_s=f"{dir_runs[False][0]:.2f}", k1_launches_megakernel_on=dir_runs[True][1],
+          min=f"{img.min():.4f}", max=f"{img.max():.4f}", max_norm=f"{norms.max():.6f}",
+          coverage=f"{coverage:.3f}", rtlightmap_dir_ms=f"{filter_ms:.3f}",
+          filter_out_finite=bool(np.isfinite(out).all()))
+    if not (np.isfinite(img).all() and img.min() >= -1.0 and img.max() <= 1.0
+            and norms.max() <= DIR_NORM_MAX and coverage > DIR_COVERAGE
+            and dir_runs[True][1] == 0 and np.isfinite(out).all()):
+        raise AssertionError("dir_aov: the AOV or its filter is out of bounds")
+
+    # ---- case=move_camera: K1 after a move against a fresh Renderer ----
+    position = [0.0, 5.0, 12.0]
+    r = Renderer(scene(), RenderOptions(megakernel=True), seed=SEED, device=device)
+    r.render(iterations=OPTIONS_ITERS)
+    megakernel.LAUNCHES = 0
+    r.move_camera(position=position)
+    r.render(iterations=OPTIONS_ITERS)
+    torch.cuda.synchronize()
+    moved_launches = megakernel.LAUNCHES
+    moved_scene = scene()
+    moved_scene.state.camera.position = np.asarray(position, np.float32)
+    moved_scene.state.camera.rebuild()
+    fresh = Renderer(moved_scene, RenderOptions(megakernel=True), seed=SEED, device=device)
+    fresh.render(iterations=OPTIONS_ITERS)
+    require_equal("move_camera", r.acc, fresh.acc)
+    phase("options", case="move_camera", position="/".join(f"{x:g}" for x in position),
+          iterations=OPTIONS_ITERS, k1_launches=moved_launches, bitwise_vs_fresh=True)
+    if not (r.use_megakernel and moved_launches > 0):
+        raise AssertionError("move_camera: the moved render did not run through K1")
+
+    # ---- case=benchmark_app: apps/benchmark.py --mode all --json ----
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mygpuraytracer_tpu_torch.apps.benchmark",
+                           "--mode", "all", "--json"],
+                          capture_output=True, text=True, timeout=600, cwd=HERE)
+    bench_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"benchmark app failed:\n{proc.stdout}\n{proc.stderr}")
+    results = json.loads(proc.stdout.strip().splitlines()[-1])
+    render = {e["bench"]: e["msamples_per_sec"] for e in results if "msamples_per_sec" in e}
+    denoise = {e["bench"]: e["msec_per_image"] for e in results if "msec_per_image" in e}
+    phase("options", case="benchmark_app", rc=proc.returncode, entries=len(results),
+          seconds=f"{bench_s:.1f}", **{f"{k}_msamples_per_s": v for k, v in render.items()})
+    phase("options", case="benchmark_app", **{f"{k}_ms": v for k, v in denoise.items()})
+    if len(results) != BENCH_ENTRIES or len(render) != 4 or len(denoise) != 9:
+        raise AssertionError(f"benchmark app printed {len(results)} entries: {results}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -1332,6 +1595,9 @@ def main() -> int:
         print(f"    device {e.self_device_time_total / 1e3 / PROFILE_ITERS:9.3f} ms/iter "
               f"x{e.count // PROFILE_ITERS:6d}  {e.key[:90]}", flush=True)
 
+    # ---- options: the wavefront's render options and the Renderer surface ---------
+    options_phase(device)
+
     # ---- prng: K6 against its plain version ----------------------------------------
     n = RES * RES
     k6_max_abs = 0.0
@@ -1609,25 +1875,33 @@ def main() -> int:
     filter_phase(fdev, renderer.beauty(), renderer.albedo_image(), bf16)
 
     # ---- app ------------------------------------------------------------------------
-    for scene_arg, iters in (("cornell", 32), ("scenes/cornellShipTex.txt", 4)):
+    app_runs = (("cornell", 32, ()), ("scenes/cornellShipTex.txt", 4, ()),
+                ("scenes/cornellShipTex.txt", 2,
+                 ("--no-antialias", "--sort-by-material", "--save-normal")))
+    for scene_arg, iters, flags in app_runs:
         with tempfile.TemporaryDirectory() as out_dir:
             proc = subprocess.run(
                 [sys.executable, "-m", "mygpuraytracer_tpu_torch.apps.raytrace", scene_arg,
                  "--resolution", str(RES), str(RES), "--iterations", str(iters),
-                 "--depth", str(DEPTH), "--out-dir", out_dir],
+                 "--depth", str(DEPTH), "--out-dir", out_dir, *flags],
                 capture_output=True, text=True, timeout=600, cwd=HERE)
             pngs = sorted(os.listdir(out_dir))
             tail = proc.stdout.strip().splitlines()[-3:]
-            phase("app", scene=scene_arg, rc=proc.returncode, pngs=len(pngs),
-                  out=repr(" | ".join(tail)))
+            phase("app", scene=scene_arg, flags=",".join(flags) or "none", rc=proc.returncode,
+                  pngs=len(pngs), out=repr(" | ".join(tail)))
             if proc.returncode != 0:
                 raise AssertionError(f"app failed:\n{proc.stdout}\n{proc.stderr}")
             if not re.search(r"^Denoise: device=[\d.]+ms filter=[\d.]+ms exec=[\d.]+ms$",
                              proc.stdout, re.M):
                 raise AssertionError(f"app did not denoise through the Filter:\n{proc.stdout}")
-            for suffix in ("samp.png", "albedo.png", "input.png", "output.png"):
+            suffixes = ("samp.png", "albedo.png", "input.png", "output.png")
+            if "--save-normal" in flags:
+                suffixes += ("normal.png",)
+            for suffix in suffixes:
                 if sum(p.endswith(suffix) for p in pngs) != 1:
                     raise AssertionError(f"app did not write one *{suffix}: {pngs}")
+            if len(pngs) != len(suffixes):
+                raise AssertionError(f"app wrote {len(pngs)} PNGs, not {len(suffixes)}: {pngs}")
 
     kernels = [{
         "name": "k1_megakernel",

@@ -10,12 +10,16 @@ four outputs of saveImage (main.cpp:115-165):
     <name>.<timestamp>.<N>albedo.png  first-hit albedo AOV
     <name>.<timestamp>.<N>input.png   denoiser input (normalized beauty)
     <name>.<timestamp>.<N>output.png  denoised beauty
-with the reference's horizontal mirror (img.setPixel(width-1-x, ...)).
+with the reference's horizontal mirror (img.setPixel(width-1-x, ...)), and
+with ``--save-normal`` the first-hit normal AOV as <...>normal.png;
+``--preview-every N`` rewrites <name>.preview.png every N iterations (the
+headless stand-in for the reference's GL window).
 Primitive scenes and meshes of at most 256 faces render through the K1
 kernel on CUDA; larger meshes, textured and bump-mapped ones included
 (e.g. scenes/cornellShipTex.txt), through the wavefront and the mesh tiers'
-kernel (``--mesh-tier``, ``--mesh-sort``, ``--winner-table``). The beauty
-is denoised through the Filter API on the same device (``denoise_beauty``).
+kernel (``--mesh-tier``, ``--mesh-sort``, ``--winner-table``), as do
+``--sort-by-material`` runs under ``--megakernel auto``: the material sort
+exists only on the wavefront. The beauty is denoised through the Filter API on the same device (``denoise_beauty``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,12 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch", type=int, default=16, help="iterations per kernel launch")
     p.add_argument("--no-denoise", action="store_true", help="disable the AI denoiser")
+    p.add_argument("--no-antialias", action="store_true")
+    p.add_argument("--depth-of-field", action="store_true")
+    p.add_argument("--preview-every", type=int, default=0,
+                   help="dump a preview PNG every N iterations (headless 'window')")
+    p.add_argument("--save-normal", action="store_true",
+                   help="also save the first-hit normal AOV ([-1,1] -> [0,1])")
     p.add_argument("--megakernel", choices=("auto", "on", "off"), default="auto",
                    help="whole-iteration K1 CUDA kernel for supported scenes "
                         "(auto: on for CUDA)")
@@ -52,6 +62,14 @@ def parse_args(argv=None):
     p.add_argument("--winner-table", choices=("auto", "f32", "f16", "oct"), default="auto",
                    help="the rows tier's winner uv/TBN table (auto: oct on CUDA, f32 on "
                         "the CPU)")
+    p.add_argument("--sort-by-material", action="store_true",
+                   help="material-sorted wavefront execution (the reference's "
+                        "SORT_BY_MATERIAL compile flag, pathtrace.cu:36); the image is "
+                        "bitwise the unsorted one")
+    p.add_argument("--sort-impl", choices=("fused", "perm", "argsort"), default="fused",
+                   help="the sorted bounce's form (render/pathtrace.py _sort_wavefront): "
+                        "'fused' = one sort and one gather of the per-lane arrays; "
+                        "'perm' (counting sort) and 'argsort' gather every field")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--quiet", action="store_true")
     return p.parse_args(argv)
@@ -116,10 +134,20 @@ def main(argv=None) -> int:
         scene.state.trace_depth = args.depth
     iterations = args.iterations if args.iterations is not None else scene.state.iterations
     mega = device.type == "cuda" if args.megakernel == "auto" else args.megakernel == "on"
+    if args.sort_by_material and args.megakernel == "auto":
+        # The sort exists only on the wavefront: route there, so that the
+        # flag measures what it names.
+        mega = False
+    elif args.sort_by_material and mega:
+        print("warning: --sort-by-material has no effect with "
+              "--megakernel on (sorting exists only on the wavefront); "
+              "timings will measure the unsorted megakernel", file=sys.stderr)
     options = RenderOptions(
-        ai_denoise=not args.no_denoise, megakernel=mega, mesh_tier=args.mesh_tier,
+        antialiasing=not args.no_antialias, depth_of_field=args.depth_of_field,
+        ai_denoise=not args.no_denoise, mesh_tier=args.mesh_tier,
         mesh_sort={"auto": None, "off": False}.get(args.mesh_sort, args.mesh_sort),
-        winner_table=args.winner_table)
+        winner_table=args.winner_table, sort_by_material=args.sort_by_material,
+        sort_impl=args.sort_impl, megakernel=mega)
     log = (lambda *a: None) if args.quiet else print
 
     log(f"Loaded scene: {scene.state.image_name} "
@@ -135,6 +163,9 @@ def main(argv=None) -> int:
         n = min(args.batch, iterations - done)
         r.step_many(n)
         done += n
+        if args.preview_every and done % args.preview_every < n:
+            write_png(os.path.join(args.out_dir, f"{scene.state.image_name}.preview.png"),
+                      mirror_x(r.beauty()))
         if not args.quiet:
             print(f"\rIteration {done}/{iterations}", end="", flush=True)
     beauty = r.beauty()  # copies to the host: waits for the device
@@ -148,6 +179,8 @@ def main(argv=None) -> int:
     write_png(f"{prefix}samp.png", mirror_x(beauty))
     write_png(f"{prefix}albedo.png", mirror_x(albedo))
     write_png(f"{prefix}input.png", mirror_x(beauty))
+    if args.save_normal:
+        write_png(f"{prefix}normal.png", mirror_x(r.normal_image() * 0.5 + 0.5))
     if options.ai_denoise:
         output, tm = denoise_beauty(beauty, albedo, device)
         log(f"Denoise: device={tm['device_init_ms']:.1f}ms "

@@ -2,15 +2,19 @@
 
 The same option names and defaults as ``mygpuraytracer_tpu/config.py`` (one
 options object can drive both packages in a test). Options whose meaning was
-specific to the TPU keep their names. The port reads ``rng`` (threefry, or
-the K6 counter stream of ``ops/prng.py``) and ``bounce_megakernel`` (the K5
-route for large untextured meshes); it does not read ``dtype``,
-``sort_by_material`` and ``sort_impl`` yet.
+specific to the TPU keep their names. The port reads every option but
+``dtype``, which the JAX package reads nowhere either: ``rng`` (threefry,
+or the K6 counter stream of ``ops/prng.py``), ``bounce_megakernel`` (the K5
+route for large untextured meshes), and the wavefront's ``sort_by_material``
+/ ``sort_impl``, ``cache_first_bounce`` and ``dir_aov``
+(``render/pathtrace.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+SORT_IMPLS = ("fused", "perm", "argsort")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,18 +27,23 @@ class RenderOptions:
     """
 
     depth_of_field: bool = False
-    # First-bounce cache. With AA and DoF off primary rays are deterministic,
-    # so recomputing the first hit gives the cached record exactly; the port
-    # recomputes it (see render/pathtrace.py).
+    # First-bounce cache (pathtrace.cu:586-609): with AA and DoF off the
+    # primary rays are the same every iteration, so iteration 1 stores its
+    # first hit and later iterations reuse it (first_bounce_cache_active).
     cache_first_bounce: bool = True
-    # Material-sorted execution. The image is bitwise identical either way
-    # (RNG streams follow the pixel id), so the port does not sort.
+    # Material-sorted wavefront (thrust::sort_by_key, pathtrace.cu:590,612):
+    # each bounce reorders the lanes by descending material id before
+    # shading. The image is bitwise identical either way (random numbers
+    # follow the pixel id). Off by default, as in the JAX package; the
+    # kernels (K1, K5) have no lane order to sort and ignore it.
     sort_by_material: bool = False
     antialiasing: bool = True
     # Per-ray mesh-AABB pre-test; image-identical either way.
     bounding_box: bool = False
     ai_denoise: bool = True
-    # SH-L1 directional lightmap AOV (not ported yet: raises).
+    # SH-L1 directional lightmap AOV: the luminance-weighted mean first-bounce
+    # direction, the RTLightmap directional filter's input. Wavefront only
+    # (the megakernel route is skipped), and it turns the sort off.
     dir_aov: bool = False
     jittered_sampling: bool = False
 
@@ -46,7 +55,8 @@ class RenderOptions:
     # not depend on it).
     face_chunk: int = 64
     # The trace core's dtype on the TPU, kept by name so that one options
-    # object drives both packages; not read by the port yet.
+    # object drives both packages. Read by neither package: both trace in
+    # float32.
     dtype: str = "float32"
     # The wavefront's and K5's random numbers (ops/prng.py): "threefry"
     # (bit-exact with jax.random), "pallas" (the K6 counter stream, a CUDA
@@ -77,7 +87,16 @@ class RenderOptions:
     # "rows" (K2), "rows_dma" (the same here), "lists" (K3), "conds" (K4):
     # the TPU's three schedules of the one query; the same image.
     mesh_tier: str = "rows"
+    # The sorted bounce's form, one stable descending-material permutation
+    # in each: "fused" (one sort, one gather of the 16 per-lane arrays, 22
+    # when textured, the material constants rebuilt from the key), "perm"
+    # (counting sort, ops/compaction.py) or "argsort"; both gather every
+    # field.
     sort_impl: str = "fused"
+
+    def __post_init__(self):
+        if self.sort_impl not in SORT_IMPLS:
+            raise ValueError(f"unknown sort_impl {self.sort_impl!r}")
 
     @property
     def first_bounce_cache_active(self) -> bool:

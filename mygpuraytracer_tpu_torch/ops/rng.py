@@ -114,3 +114,15 @@ def uniform(key: Key, shape, device="cpu") -> torch.Tensor:
 def iteration_key(base_key: Key, iteration: int) -> Key:
     """Key for one camera sample (MC iteration)."""
     return fold_in(base_key, iteration)
+
+
+def bounce_key(iter_key: Key, depth: int) -> Key:
+    """Key for bounce ``depth`` of one iteration: ``fold_in(iter_key, depth)``."""
+    return fold_in(iter_key, depth)
+
+
+def bounce_uniforms(iter_key: Key, depth: int, n: int, m: int, device="cpu") -> torch.Tensor:
+    """[n, m] U[0, 1) for bounce ``depth``: ``jax.random.uniform`` of
+    :func:`bounce_key` (m uniforms per ray, the reference's fixed per-bounce
+    draw pattern, interactions.h)."""
+    return uniform(bounce_key(iter_key, depth), (n, m), device)

@@ -39,6 +39,25 @@ class Vec3(NamedTuple):
         return Vec3(-self.x, -self.y, -self.z)
 
 
+def splat(c, like: torch.Tensor | None = None, device=None) -> Vec3:
+    """A (3,) constant as a Vec3 of float32 0-d tensors, on ``like``'s
+    device or ``device`` (default CPU)."""
+    if like is not None:
+        device = like.device
+    return Vec3(*(torch.tensor(float(c[i]), dtype=torch.float32, device=device)
+                  for i in range(3)))
+
+
+def from_array(a: torch.Tensor) -> Vec3:
+    """[..., 3] -> Vec3 of [...]."""
+    return Vec3(a[..., 0], a[..., 1], a[..., 2])
+
+
+def to_array(v: Vec3) -> torch.Tensor:
+    """Vec3 of [...] -> [..., 3]."""
+    return torch.stack([v.x, v.y, v.z], dim=-1)
+
+
 def dot(a: Vec3, b: Vec3):
     return a.x * b.x + a.y * b.y + a.z * b.z
 

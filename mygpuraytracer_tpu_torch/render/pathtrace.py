@@ -1,12 +1,9 @@
 """One Monte-Carlo camera sample: the wavefront pipeline.
 
-Counterpart of ``mygpuraytracer_tpu/render/pathtrace.py::render_sample`` without
-the material sort and the first-bounce cache (neither changes the image: the
-sort is a permutation undone at the end, and the cache stores a first hit
-that is recomputed here from the same deterministic primary rays):
+Counterpart of ``mygpuraytracer_tpu/render/pathtrace.py::render_sample``:
 
-    one RNG block -> raygen -> bounce 0 (+ AOVs) -> bounces 1..depth-1
-    -> finalGather (color * pi)
+    one RNG block -> raygen -> bounce 0 (first-bounce cache + AOVs)
+    -> bounces 1..depth-1 -> finalGather (color * pi)
 
 The RNG block is ``ops/prng.py::iteration_uniforms(options, fold_in(key(seed),
 iteration), iteration, 4 + 3*depth, N)``: ``jax.random.uniform`` of that key,
@@ -14,15 +11,34 @@ reproduced bit for bit by ``ops/rng.py``, or under ``rng`` "pallas"/"auto" off
 the CPU the K6 counter stream. Rows 0-1 are the AA jitter, rows 2-3 the DoF
 lens sample, rows 4+3b .. 6+3b bounce b.
 
-With ``options.megakernel`` on a scene the kernels support,
-``render_sample`` takes the JAX package's megakernel route: one iteration
-through K1 or, for large untextured meshes under ``bounce_megakernel``, K5
-(``render/megakernel.py::megakernel_sample``). Otherwise every bounce
-queries the scene through ``ops/trace.py::intersect_soa`` with the options'
-mesh settings: on CUDA tensors a mesh of more than 256 faces goes through
-the mesh tiers' CUDA kernel (ops/mesh_hit.py), everything else is PyTorch.
-The kernels' plain versions run ``trace_sample`` on their own uniforms and
-scene query.
+The wavefront reads three options the kernels do not have:
+
+- ``sort_by_material`` (``sort_impl``): before each shade the lanes are
+  reordered by descending material id (``_sort_wavefront``), the shade
+  uniforms are fetched through the pixel map, and the color is scattered
+  back to pixel order at the end. Every op works lane by lane and the mesh
+  kernel answers each ray alone, so the image is bitwise that of the
+  unsorted wavefront.
+- the first-bounce cache (``first_bounce_cache_active``: AA and DoF off):
+  iteration 1 stores its first hit, later iterations reuse it instead of
+  querying the scene. The cache holds the unsorted hit; the sort runs
+  after it is read or written. Nothing writes a hit record in place, so the
+  cached tensors stay as they were stored.
+- ``dir_aov``: the first-bounce direction of the paths alive after bounce
+  0, weighted by the path's final luminance, and the luminance itself
+  (``SampleOutput.dirmap``/``dirlum``). It turns the sort off and skips the
+  megakernel route.
+
+With ``options.megakernel`` on a scene the kernels support (and no
+``dir_aov``), ``render_sample`` takes the JAX package's megakernel route:
+one iteration through K1 or, for large untextured meshes under
+``bounce_megakernel``, K5 (``render/megakernel.py::megakernel_sample``).
+Otherwise every bounce queries the scene through
+``ops/trace.py::intersect_soa`` with the options' mesh settings: on CUDA
+tensors a mesh of more than 256 faces goes through the mesh tiers' CUDA
+kernel (ops/mesh_hit.py), everything else is PyTorch. The kernels' plain
+versions run ``wavefront_sample``/``trace_sample`` with the three options
+off (their keyword defaults).
 """
 
 from __future__ import annotations
@@ -34,6 +50,7 @@ import torch
 
 from ..config import RenderOptions
 from ..ops import rng
+from ..ops.compaction import material_sort_perm
 from ..ops.prng import iteration_uniforms
 from ..ops.trace import HitSoA, intersect_soa
 from ..ops.vec3 import Vec3
@@ -42,16 +59,125 @@ from .camera import generate_camera_rays
 from .shade import PathStateSoA, albedo_soa, shade_soa
 
 PI = math.pi  # finalGather multiplies by pi (pathtrace.cu:508)
+LUMINANCE = (0.2126, 0.7152, 0.0722)  # the dir AOV's path weight
 
 
 class SampleOutput(NamedTuple):
     color: Vec3  # [N] this sample's contribution (already * pi)
     albedo: Vec3  # [N] first-hit albedo; zero except at iteration 1
     normal: Vec3  # [N] first-hit shading normal; zero except at iteration 1
+    cache: HitSoA | None = None  # the first-bounce cache after this sample
+    # dir_aov: first-bounce direction * path luminance, and the luminance;
+    # their sums over iterations give the normalized mean direction.
+    dirmap: Vec3 | None = None
+    dirlum: torch.Tensor | None = None
+
+
+def make_empty_cache(n: int, device="cuda") -> HitSoA:
+    """An empty first-bounce cache of ``n`` lanes (every lane a miss), each
+    field its own tensor."""
+    z = lambda: torch.zeros(n, dtype=torch.float32, device=device)
+    zi = lambda: torch.zeros(n, dtype=torch.int32, device=device)
+    zb = lambda: torch.zeros(n, dtype=torch.bool, device=device)
+    zv = lambda: Vec3(z(), z(), z())
+    return HitSoA(
+        t=torch.full((n,), math.inf, dtype=torch.float32, device=device), hit=zb(),
+        normal=zv(), is_obj=zb(), color=zv(), spec_color=zv(), spec_ex=z(), refl=z(),
+        refr=z(), ior=z(), emit=z(), material_id=zi(), u=z(), v=z(), kd=zi(), ks=zi(),
+        ke=zi(), bump=zi(),
+    )
 
 
 def num_rng_streams(trace_depth: int) -> int:
     return 4 + 3 * trace_depth
+
+
+def _rebuild_material_fields(meta, mat_id: torch.Tensor, hit_mask: torch.Tensor):
+    """The per-material constant HitSoA fields from a (sorted) material-id
+    vector, by the select chain over ``meta.geoms`` that intersection uses
+    (ops/trace.py ``_Running.set_material``); lanes where ``hit_mask`` is
+    False keep zeros, as a miss does. Returns (color Vec3, spec_color Vec3,
+    spec_ex, refl, refr, ior, emit), bitwise the unsorted fields: both
+    select the same Python-float constants."""
+    z = torch.zeros(mat_id.shape, dtype=torch.float32, device=mat_id.device)
+    col, spec = [z, z, z], [z, z, z]
+    spec_ex = refl = refr = ior = emit = z
+    seen = set()
+    for g in meta.geoms:
+        if g.material_id in seen:
+            continue  # the same material gives the same constants
+        seen.add(g.material_id)
+        sel = hit_mask & (mat_id == g.material_id)
+        col = [torch.where(sel, c, a) for c, a in zip(g.color, col)]
+        spec = [torch.where(sel, c, a) for c, a in zip(g.spec_color, spec)]
+        spec_ex = torch.where(sel, g.spec_exponent, spec_ex)
+        refl = torch.where(sel, g.has_reflective, refl)
+        refr = torch.where(sel, g.has_refractive, refr)
+        ior = torch.where(sel, g.ior, ior)
+        emit = torch.where(sel, g.emittance, emit)
+    return Vec3(*col), Vec3(*spec), spec_ex, refl, refr, ior, emit
+
+
+def _take(x, idx: torch.Tensor):
+    """Gather every tensor of a (nested) NamedTuple through ``idx``."""
+    if isinstance(x, tuple):
+        return type(x)(*(_take(a, idx) for a in x))
+    return x[idx]
+
+
+def _sort_wavefront(meta, state: PathStateSoA, hit: HitSoA, pixel: torch.Tensor,
+                    num_materials: int, impl: str = "fused"):
+    """Material-sorted execution (thrust::sort_by_key, pathtrace.cu:590,612):
+    the path state, the hits and the pixel map reordered by descending
+    material id, stably. Returns (state, hit, pixel).
+
+    - ``"fused"``: one stable ``torch.sort`` of the negated key, then one
+      gather of the per-lane arrays stacked as int32 bit views into
+      [K, N] (K = 16: ray state, t, normal, ``is_obj``, pixel; 22 when
+      textured: u, v and the four texture slots), and the per-material
+      constants rebuilt from the sorted key. An untextured scene's u, v and
+      slots come back as zeros, as in the JAX function.
+    - ``"perm"``: ``ops/compaction.py::material_sort_perm`` (counting sort),
+      then a gather of every field.
+    - ``"argsort"``: a stable argsort, then a gather of every field.
+
+    All three apply the same permutation."""
+    if impl == "fused":
+        textured = bool(meta.has_textures)
+        floats = [*state.origin, *state.direction, *state.color, hit.t, *hit.normal]
+        ints = [state.remaining, hit.is_obj.to(torch.int32), pixel]
+        if textured:
+            floats += [hit.u, hit.v]
+            ints += [hit.kd, hit.ks, hit.ke, hit.bump]
+        neg_key, order = torch.sort(-hit.material_id, stable=True)
+        rows = torch.stack([f.view(torch.int32) for f in floats] + ints).index_select(1, order)
+        f = [r.view(torch.float32) for r in rows[:len(floats)]]
+        remaining, is_obj, pix = rows[len(floats):len(floats) + 3]
+        mat_id = -neg_key
+        if textured:
+            u, v = f[13], f[14]
+            kd, ks, ke, bump = rows[len(floats) + 3:]
+        else:
+            u = v = torch.zeros_like(f[9])
+            kd = ks = ke = bump = torch.zeros_like(mat_id)
+        t = f[9]
+        hit_mask = torch.isfinite(t)
+        col, spec, spec_ex, refl, refr, ior, emit = _rebuild_material_fields(
+            meta, mat_id, hit_mask)
+        state = PathStateSoA(origin=Vec3(*f[0:3]), direction=Vec3(*f[3:6]),
+                             color=Vec3(*f[6:9]), remaining=remaining)
+        hit = HitSoA(t=t, hit=hit_mask, normal=Vec3(*f[10:13]), is_obj=is_obj != 0,
+                     color=col, spec_color=spec, spec_ex=spec_ex, refl=refl, refr=refr,
+                     ior=ior, emit=emit, material_id=mat_id, u=u, v=v, kd=kd, ks=ks, ke=ke,
+                     bump=bump)
+        return state, hit, pix
+    if impl == "perm":
+        order = material_sort_perm(hit.material_id, num_materials).to(torch.int64)
+    elif impl == "argsort":
+        order = torch.argsort(-hit.material_id, stable=True)
+    else:
+        raise ValueError(f"unknown sort_impl {impl!r}")
+    return _take(state, order), _take(hit, order), pixel[order]
 
 
 def render_sample(
@@ -60,21 +186,30 @@ def render_sample(
     options: RenderOptions,
     iteration: int,  # 1-based like the reference
     base_key: rng.Key,
+    cache: HitSoA | None = None,
 ) -> SampleOutput:
-    if options.dir_aov:
-        raise NotImplementedError("dir_aov is not ported yet")
-    if options.megakernel:
+    """One iteration under ``options``. ``cache`` is the first-bounce cache
+    (``make_empty_cache``; None: none yet); the result carries its update."""
+    if options.megakernel and not options.dir_aov:
         from .megakernel import megakernel_sample, supports_megakernel
 
         if supports_megakernel(meta, options):
-            return megakernel_sample(dev, meta, options, iteration, base_key)
-    return wavefront_sample(dev, meta, options, iteration, base_key)
+            out = megakernel_sample(dev, meta, options, iteration, base_key)
+            return out._replace(cache=cache)
+    return wavefront_sample(
+        dev, meta, options, iteration, base_key, cache,
+        sort=options.sort_by_material and meta.num_geoms > 1 and not options.dir_aov,
+        cache_first_bounce=options.first_bounce_cache_active, dir_aov=options.dir_aov)
 
 
 def wavefront_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions,
-                     iteration: int, base_key: rng.Key) -> SampleOutput:
+                     iteration: int, base_key: rng.Key, cache: HitSoA | None = None, *,
+                     sort: bool = False, cache_first_bounce: bool = False,
+                     dir_aov: bool = False) -> SampleOutput:
     """One iteration of the wavefront: ``iteration_uniforms`` and
-    ``intersect_soa`` with the options' mesh settings."""
+    ``intersect_soa`` with the options' mesh settings, then
+    :func:`trace_sample` with the wavefront options given here (all off by
+    default, as the kernels' plain versions call it)."""
     n = meta.resolution[0] * meta.resolution[1]
     U = iteration_uniforms(options, rng.iteration_key(base_key, iteration), iteration,
                            num_rng_streams(meta.trace_depth), n, dev.camera.position.device)
@@ -82,13 +217,30 @@ def wavefront_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions,
         meta, dev, o, d, options.face_chunk, bounding_box=options.bounding_box,
         mesh_pallas=options.mesh_pallas, mesh_sort=options.mesh_sort,
         mesh_tier=options.mesh_tier, winner_table=options.winner_table, active=active)
-    return trace_sample(dev, meta, options, iteration, U, query)
+    return trace_sample(dev, meta, options, iteration, U, query, cache, sort=sort,
+                        cache_first_bounce=cache_first_bounce, dir_aov=dir_aov)
+
+
+def _shade_rows(U: torch.Tensor, depth: int) -> torch.Tensor:
+    """The shade uniforms as [depth, N, 4] rows (u0, u1, u2, 0): one row
+    gather per bounce fetches a sorted lane's three numbers."""
+    n = U.shape[1]
+    u = U[4:4 + 3 * depth].reshape(depth, 3, n).transpose(1, 2)
+    return torch.cat([u, torch.zeros((depth, n, 1), dtype=U.dtype, device=U.device)],
+                     dim=2).contiguous()
 
 
 def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iteration: int,
-                 U: torch.Tensor, query: Callable[..., HitSoA]) -> SampleOutput:
+                 U: torch.Tensor, query: Callable[..., HitSoA],
+                 cache: HitSoA | None = None, *, sort: bool = False,
+                 cache_first_bounce: bool = False, dir_aov: bool = False) -> SampleOutput:
     """Raygen from the uniforms ``U`` [4 + 3*depth, N], then the bounce loop
-    over ``query(origin, direction, active=None)``, shading and the AOVs."""
+    over ``query(origin, direction, active=None)``, shading and the AOVs.
+
+    ``sort`` runs the material-sorted bounce (``options.sort_impl``);
+    ``cache_first_bounce`` takes bounce 0's hit from ``cache`` after
+    iteration 1 (or queries and stores it, at iteration 1 or when ``cache``
+    is None); ``dir_aov`` adds the directional AOV."""
     n = meta.resolution[0] * meta.resolution[1]
     depth = meta.trace_depth
     device = U.device
@@ -100,14 +252,36 @@ def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iter
         remaining=torch.full((n,), depth, dtype=torch.int32, device=device),
     )
 
-    hit0 = query(o, d)
+    if cache_first_bounce and cache is not None and iteration != 1:
+        hit0 = cache
+    else:
+        hit0 = query(o, d)
+    new_cache = hit0 if cache_first_bounce else cache
     zero = torch.zeros(n, dtype=torch.float32, device=device)
     if iteration == 1:
         albedo = albedo_soa(meta, dev, hit0)
         normal = Vec3(*(torch.where(hit0.hit, c, zero) for c in hit0.normal))
     else:
         albedo = normal = Vec3(zero, zero, zero)
-    state = shade_soa(meta, dev, state, hit0, U[4], U[5], U[6])
+
+    num_materials = int(dev.mat_color.shape[0])
+    pixel = torch.arange(n, dtype=torch.int32, device=device)
+    if sort:
+        # The random numbers follow the pixel, as the reference's RNG hashes
+        # pixelIndex (pathtrace.cu:409): a sorted lane fetches its pixel's.
+        rows = _shade_rows(U, depth)
+
+        def shade_uniforms(b: int, pix: torch.Tensor):
+            r = rows[b].index_select(0, pix)
+            return r[:, 0], r[:, 1], r[:, 2]
+
+        state, hit0, pixel = _sort_wavefront(meta, state, hit0, pixel, num_materials,
+                                             options.sort_impl)
+        state = shade_soa(meta, dev, state, hit0, *shade_uniforms(0, pixel))
+    else:
+        state = shade_soa(meta, dev, state, hit0, U[4], U[5], U[6])
+    if dir_aov:
+        dir0, alive0 = state.direction, state.remaining > 0
 
     for b in range(1, depth):
         active = state.remaining > 0
@@ -115,16 +289,39 @@ def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iter
             break  # no live path: later bounces change nothing
         # Dead lanes keep a stale ray; ``active`` keeps it out of the mesh query.
         h = query(state.origin, state.direction, active)
-        state = shade_soa(meta, dev, state, h, U[4 + 3 * b], U[5 + 3 * b], U[6 + 3 * b])
+        if sort:
+            state, h, pixel = _sort_wavefront(meta, state, h, pixel, num_materials,
+                                              options.sort_impl)
+            state = shade_soa(meta, dev, state, h, *shade_uniforms(b, pixel))
+        else:
+            state = shade_soa(meta, dev, state, h, U[4 + 3 * b], U[5 + 3 * b], U[6 + 3 * b])
 
     color = Vec3(state.color.x * PI, state.color.y * PI, state.color.z * PI)
-    return SampleOutput(color=color, albedo=albedo, normal=normal)
+    if sort:
+        # Back to pixel order (finalGather keys on pixelIndex, pathtrace.cu:501-510).
+        sorted_rows = torch.stack(color)
+        rows_out = torch.empty_like(sorted_rows)
+        rows_out[:, pixel.to(torch.int64)] = sorted_rows
+        color = Vec3(*rows_out)
+    dirmap = dirlum = None
+    if dir_aov:
+        lum = LUMINANCE[0] * color.x + LUMINANCE[1] * color.y + LUMINANCE[2] * color.z
+        dirlum = torch.where(alive0, lum, 0.0)
+        dirmap = Vec3(dir0.x * dirlum, dir0.y * dirlum, dir0.z * dirlum)
+    return SampleOutput(color=color, albedo=albedo, normal=normal, cache=new_cache,
+                        dirmap=dirmap, dirlum=dirlum)
 
 
-def accumulate_sample(acc: torch.Tensor, out: SampleOutput, iteration: int) -> None:
+def accumulate_sample(acc: torch.Tensor, out: SampleOutput, iteration: int,
+                      dir_acc: torch.Tensor | None = None) -> None:
     """Add one sample into the [9, N] accumulator in place: rows 0-2 sum the
-    color, rows 3-5 and 6-8 take the albedo and normal AOVs at iteration 1."""
+    color, rows 3-5 and 6-8 take the albedo and normal AOVs at iteration 1.
+    ``dir_acc`` [4, N], if given, sums the dir AOV (direction rows 0-2,
+    luminance row 3) of a sample that has one."""
     acc[0:3] += torch.stack(out.color)
     if iteration == 1:
         acc[3:6] = torch.stack(out.albedo)
         acc[6:9] = torch.stack(out.normal)
+    if dir_acc is not None and out.dirmap is not None:
+        dir_acc[0:3] += torch.stack(out.dirmap)
+        dir_acc[3] += out.dirlum

@@ -7,14 +7,20 @@ accumulators and the iteration counter.
 
 The accumulators are one [9, N] float32 tensor on the device: rows 0-2 sum
 color * pi over iterations, rows 3-5 hold the first-hit albedo and rows 6-8
-the first-hit normal, both taken at iteration 1. With ``options.megakernel``
-on a scene the kernels support (render/megakernel.py), ``step_many`` runs a
-batch of iterations through the K1 CUDA kernel in one launch or, for a mesh
-of more than 256 faces under ``bounce_megakernel``, through K5, one launch
-per iteration. Otherwise it runs the wavefront sample by sample
-(render/pathtrace.py), where a mesh of more than 256 faces, textured or
-not, goes through the mesh tiers: their CUDA kernel on a CUDA device, its
-plain version on the CPU (ops/mesh_hit.py).
+the first-hit normal, both taken at iteration 1. Beside it the Renderer
+holds the first-bounce cache (``options.first_bounce_cache_active``), kept
+across ``step``/``step_many`` and dropped by ``reset``, and a [4, N] dir
+accumulator (``options.dir_aov``: direction rows 0-2, luminance row 3).
+With ``options.megakernel`` on a scene the kernels support
+(render/megakernel.py) and no ``dir_aov``, ``step_many`` runs a batch of
+iterations through the K1 CUDA kernel in one launch or, for a mesh of more
+than 256 faces under ``bounce_megakernel``, through K5, one launch per
+iteration. Otherwise it runs the wavefront sample by sample
+(render/pathtrace.py) with the material sort, the cache and the dir AOV as
+the options ask, where a mesh of more than 256 faces, textured or not,
+goes through the mesh tiers: their CUDA kernel on a CUDA device, its plain
+version on the CPU (ops/mesh_hit.py). ``move_camera`` moves the camera and
+resets the accumulation (main.cpp:222-248).
 
 As in the JAX package, the auto options are resolved once, at
 construction, from the device: on CUDA the mesh tiers are on,
@@ -32,10 +38,11 @@ import torch
 
 from ..config import RenderOptions
 from ..ops import rng
-from ..scene.device_scene import build_device_scene
+from ..scene.device_scene import build_device_scene, camera_params
 from ..scene.structs import GeomType, Scene
+from ..utils.timer import PerformanceTimer
 from . import megakernel
-from .pathtrace import accumulate_sample, render_sample
+from .pathtrace import accumulate_sample, make_empty_cache, render_sample
 
 
 def mesh_reach_fraction(scene: Scene, meta, grid: int = 64) -> float:
@@ -109,6 +116,7 @@ class Renderer:
         self.options = _resolve_auto_options(self.options, scene, self.meta, self.device)
         self.options = _resolve_winner_table(self.options, self.device)
         self.base_key = rng.make_key(seed)
+        self.timer = PerformanceTimer()
         self.use_megakernel = bool(
             self.options.megakernel
             and not self.options.dir_aov
@@ -118,12 +126,29 @@ class Renderer:
 
     # -- lifecycle (pathtraceInit/Free analog) --------------------------------
     def reset(self) -> None:
-        """Zero accumulators and iteration counter (camera-move semantics)."""
+        """Zero the accumulators and the iteration counter and drop the
+        first-bounce cache (camera-move semantics)."""
         w, h = self.meta.resolution
-        self.acc = torch.zeros((9, w * h), dtype=torch.float32, device=self.device)
+        n = w * h
+        self.acc = torch.zeros((9, n), dtype=torch.float32, device=self.device)
+        self.dir_acc = torch.zeros((4, n), dtype=torch.float32, device=self.device)
+        self.cache = (make_empty_cache(n, self.device)
+                      if self.options.first_bounce_cache_active else None)
         self.iteration = 0
         self.record = (megakernel.scene_record(self.meta, self.dev.camera)
                        if self.use_megakernel else None)
+
+    def move_camera(self, position=None, look_at=None) -> None:
+        """Move the camera and reset the accumulation (main.cpp:222-248);
+        K1's scene record is rebuilt from the new camera."""
+        cam = self.scene.state.camera
+        if position is not None:
+            cam.position = np.asarray(position, np.float32)
+        if look_at is not None:
+            cam.look_at = np.asarray(look_at, np.float32)
+        cam.rebuild()
+        self.dev = self.dev._replace(camera=camera_params(cam, self.device))
+        self.reset()
 
     # -- iteration ------------------------------------------------------------
     def step(self) -> int:
@@ -139,20 +164,31 @@ class Renderer:
                                   self.base_key, record=self.record)
         else:
             for it in range(start, start + num_iters):
-                out = render_sample(self.dev, self.meta, self.options, it, self.base_key)
-                accumulate_sample(self.acc, out, it)
+                out = render_sample(self.dev, self.meta, self.options, it, self.base_key,
+                                    self.cache)
+                accumulate_sample(self.acc, out, it, self.dir_acc)
+                self.cache = out.cache
         self.iteration += num_iters
         return self.iteration
 
-    def render(self, iterations: int | None = None, batch: int = 16) -> np.ndarray:
+    def render(self, iterations: int | None = None, progress=None,
+               batch: int = 16) -> np.ndarray:
         """Run ``iterations`` samples (default: the scene's ITERATIONS) in
-        batches of ``batch`` and return the normalized beauty image HxWx3."""
+        batches of ``batch`` and return the normalized beauty image HxWx3.
+        ``progress`` (the cooperative-cancel callback, cf. oidnDenoise's
+        progress monitor) is called with the done fraction after each batch;
+        rendering stops when it returns False. ``self.timer`` times the
+        call, the device synchronised."""
         total = iterations if iterations is not None else self.meta.iterations
+        self.timer.start()
         done = 0
         while done < total:
             n = min(batch, total - done)
             self.step_many(n)
             done += n
+            if progress is not None and not progress(done / total):
+                break
+        self.timer.end(sync=self.acc)
         return self.beauty()
 
     def render_denoised(self, iterations: int | None = None, batch: int = 16,
@@ -182,3 +218,20 @@ class Renderer:
 
     def albedo_image(self) -> np.ndarray:
         return self._to_hw3(self.acc[3:6])
+
+    def normal_image(self) -> np.ndarray:
+        """First-hit shading normals in [-1, 1] (the AOV that feeds the
+        denoiser's albedo + normal tier)."""
+        return self._to_hw3(self.acc[6:9])
+
+    def dir_image(self) -> np.ndarray:
+        """The normalized SH-L1 directional lightmap in [-1, 1]
+        (``options.dir_aov``): the luminance-weighted mean first-bounce
+        direction per pixel, the RTLightmap directional filter's input
+        (core/unet.cpp:744-763)."""
+        w = torch.clamp_min(self.dir_acc[3:4], 1e-8)
+        return np.clip(self._to_hw3(self.dir_acc[0:3] / w), -1.0, 1.0)
+
+    def raw_accumulator(self) -> np.ndarray:
+        """The color sum over iterations, not divided by their count."""
+        return self._to_hw3(self.acc[0:3])

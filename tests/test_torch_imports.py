@@ -61,7 +61,11 @@ def test_scan_covers_the_mesh_path():
                    "mygpuraytracer_tpu_torch.utils.png", "mygpuraytracer_tpu_torch.ops.prng",
                    "mygpuraytracer_tpu_torch.denoise.filter", "mygpuraytracer_tpu_torch.utils.exr",
                    "mygpuraytracer_tpu_torch.utils.image_io",
-                   "mygpuraytracer_tpu_torch.apps.denoise"):
+                   "mygpuraytracer_tpu_torch.apps.denoise",
+                   "mygpuraytracer_tpu_torch.ops.compaction",
+                   "mygpuraytracer_tpu_torch.ops.intersect",
+                   "mygpuraytracer_tpu_torch.utils.timer",
+                   "mygpuraytracer_tpu_torch.apps.benchmark"):
         assert module in MODULES
     for path in ("mygpuraytracer_tpu_torch/csrc/mesh_hit.cu",
                  "mygpuraytracer_tpu_torch/csrc/megakernel.cu",
@@ -104,6 +108,12 @@ def test_entry_points_default_to_cuda():
     assert _default(DeviceBuffer.__init__, "device") == "cuda"
     assert _default(raytrace.denoise_beauty, "device") == "cuda"
     assert denoise.parse_args(["--ldr", "x.pfm"]).device == "cuda"
+    from mygpuraytracer_tpu_torch.apps import benchmark
+    from mygpuraytracer_tpu_torch.render.pathtrace import make_empty_cache
+
+    assert _default(benchmark.bench_render, "device") == "cuda"
+    assert _default(benchmark.bench_denoise, "device") == "cuda"
+    assert _default(make_empty_cache, "device") == "cuda"
 
 
 def test_chip_smoke_refuses_without_cuda():
