@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths (mygpuraytracer_tpu_torch) on the card
+Drives the port's main paths (mygpuraytracer_tpu_torch) on the card
 at 800x800, depth 8: the builtin Cornell box through the K1 CUDA kernel;
 the 23,328-face spaceship in the Cornell box, textured and bump-mapped
 (scenes/cornellShipTex.txt) and plain (scenes/cornellShip.txt), through the
 wavefront and the mesh tiers' CUDA kernel (K2/K3/K4); and cornellShip
 through the bounce megakernel K5 with the K6 uniforms for its raygen; all
 denoised with the U-Net, the Cornell render also through the OIDN-style
-Filter API and the two apps that call it. Phases, each printing one line
-with its elapsed seconds:
+Filter API and the two apps that call it; and the denoiser's trainer, on
+pairs rendered through K1. Phases, each printing one line with its
+elapsed seconds:
 
 1. device      -- the card's name and power limit (nvidia-smi); fails without CUDA
 2. build       -- one nvcc per csrc/*.cu, in parallel, into the gitignored build
@@ -108,6 +109,23 @@ with its elapsed seconds:
                   through Filter("RT") (its "Denoise: device=... filter=...
                   exec=..." line), and on cornellShipTex with --no-antialias
                   --sort-by-material --save-normal (five PNGs)
+14. train      -- the denoiser's training toolkit (train/, the train_denoiser
+                  app): a Cornell pair rendered by render_training_pairs at
+                  256x256, 8 and 256 spp, through K1 (its launches counted);
+                  one float32 step (TF32 off) on the card against the CPU and
+                  one bf16 "mixed" step; train_device at the JAX trainer's
+                  defaults (rt_ldr_alb's 6 channels, batch 16, 256^2 tiles,
+                  bf16, l1_msssim, max_lr 2e-4) for 3 epochs of 32 steps on
+                  data/denoise/ and the pair: per epoch the loss (finite,
+                  falling), ms per step, images/s, GFLOP per step and share of
+                  the bf16 bound, the host's syncs (one per epoch, counted by
+                  torch.cuda's sync debug mode), and the peak memory; the
+                  host-fed train() (1 epoch of 8 steps) with its device-busy
+                  share under torch.profiler; the export loaded into
+                  Filter("RT") through set_data("weights") on the noisy pair,
+                  scored by the compare_image app against the clean image; and
+                  `python -m mygpuraytracer_tpu_torch.apps.train_denoiser` for
+                  2 epochs in a subprocess
 
 It prints a JSON line of per-kernel numbers and, last, one JSON object
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -120,6 +138,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import re
@@ -127,6 +146,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -149,6 +169,14 @@ from mygpuraytracer_tpu_torch.scene import load_scene
 from mygpuraytracer_tpu_torch.scene.builtin import cornell_box, cornell_glass
 from mygpuraytracer_tpu_torch.scene.device_scene import build_device_scene
 from mygpuraytracer_tpu_torch.scene.structs import GeomType
+from mygpuraytracer_tpu_torch.apps import compare_image
+from mygpuraytracer_tpu_torch.denoise.unet import params_from_jax
+from mygpuraytracer_tpu_torch.train.dataset import render_training_pairs
+from mygpuraytracer_tpu_torch.train.export import export_weights
+from mygpuraytracer_tpu_torch.train.train import (Optimizer, TrainConfig, build_train_step,
+                                                  init_params, onecycle_schedule, train,
+                                                  train_device)
+from mygpuraytracer_tpu_torch.utils.image_io import save_image
 
 RES = 800
 DEPTH = 8
@@ -292,6 +320,16 @@ CACHE_ITERS = 4  # the first-bounce cache on and off
 DIR_NORM_MAX = 1.0 + 1e-5
 DIR_COVERAGE = 0.3
 BENCH_ENTRIES = 13  # 4 render configs (cornellObj has no builtin) + 9 denoise cells
+# Phase train: the training toolkit at the JAX trainer's defaults (TrainConfig:
+# rt_ldr_alb's 6 channels, batch 16, 256^2 tiles, bf16 "mixed", l1_msssim,
+# max_lr 2e-4), on data/denoise/ plus a Cornell pair rendered through K1.
+TRAIN_RES = 256
+TRAIN_SPP = (8, 256)  # the pair's noisy and clean samples per pixel
+TRAIN_EPOCHS = 3  # train_device, of TrainConfig's 32 steps each
+HOST_FED_STEPS = 8  # train(): one epoch of this many steps, then one under the profiler
+CLI_EPOCHS = 2  # apps/train_denoiser.py at the script's own TrainConfig
+# One float32 step (TF32 off) on the card against the CPU: summation order only.
+TRAIN_STEP_RTOL = 1e-4
 
 T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1282,6 +1320,190 @@ def options_phase(device) -> None:
         raise AssertionError(f"benchmark app printed {len(results)} entries: {results}")
 
 
+def one_train_step(cfg: TrainConfig, device, x: np.ndarray, y: np.ndarray, params: dict):
+    """(loss, the grads reaching Adam) of one update from ``params``."""
+    opt = Optimizer(params_from_jax(params).to(device), onecycle_schedule(16, cfg.max_lr))
+    step_fn, _ = build_train_step(cfg, opt)
+    loss = float(step_fn(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)))
+    return loss, [p.grad for p in opt.params]
+
+
+def profile_training(label: str, run) -> None:
+    """One run of ``run()`` under torch.profiler (the card's activity only):
+    wall ms, device-busy ms and share, and the kernels taking most of it,
+    per step of HOST_FED_STEPS."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        raise AssertionError(f"the profiler recorded no kernel of {label} on the card")
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    per = lambda ms: f"{ms / HOST_FED_STEPS:.3f}"
+    phase("train", step=label, steps=HOST_FED_STEPS, wall_ms_per_step=per(wall_ms),
+          device_busy_ms_per_step=per(busy_ms), device_busy_share=f"{busy_ms / wall_ms:.3f}",
+          conv_ms_per_step=per(device_ms(on_card, "conv", "cudnn", "xmma", "gemm", "cutlass",
+                                         "sm90")),
+          memcpy_ms_per_step=per(device_ms(on_card, "memcpy")),
+          kernels_per_step=sum(e.count for e in on_card) // HOST_FED_STEPS)
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    device {e.self_device_time_total / 1e3 / HOST_FED_STEPS:8.3f} ms/step "
+              f"x{e.count // HOST_FED_STEPS:5d}  {e.key[:90]}", flush=True)
+
+
+def train_phase(device) -> None:
+    """The training toolkit on the card: pairs rendered through K1, one step
+    on the card against the CPU, train_device at the defaults (the host's
+    syncs counted), the host-fed train() with its device-busy share, the
+    export denoising through Filter("RT"), and the train_denoiser CLI; all
+    files in a temporary directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        train_steps(device, tmp)
+
+
+def train_steps(device, tmp: str) -> None:
+    data_dir = os.path.join(HERE, "data", "denoise")
+
+    # 1. A training pair through K1.
+    megakernel.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    noisy, clean = render_training_pairs(
+        os.path.join(HERE, "scenes", "builtin_cornell.txt"), os.path.join(tmp, "pairs"), "cornell",
+        noisy_spp=TRAIN_SPP[0], clean_spp=TRAIN_SPP[1], resolution=TRAIN_RES, seed=SEED,
+        device=device)
+    pairs_ms = 1e3 * (time.perf_counter() - t)
+    launches = megakernel.LAUNCHES
+    phase("train", step="render_training_pairs", size=f"{TRAIN_RES}x{TRAIN_RES}",
+          spp="/".join(map(str, TRAIN_SPP)), ms=f"{pairs_ms:.1f}", k1_launches=launches,
+          noisy_mean=f"{noisy[..., :3].mean():.4f}", clean_mean=f"{clean.mean():.4f}",
+          albedo_max=f"{noisy[..., 3:].max():.4f}")
+    if launches < 1:
+        raise AssertionError("render_training_pairs launched K1 no time")
+    if not (noisy.shape == (TRAIN_RES, TRAIN_RES, 6) and np.isfinite(noisy).all()
+            and np.isfinite(clean).all() and clean.mean() > 1e-3):
+        raise AssertionError("the rendered training pair is not finite or is black")
+
+    # 2. One step on the card against the CPU (float32, TF32 off), and one mixed step.
+    g = np.random.default_rng(SEED)
+    xb, yb = g.random((4, 64, 64, 6), np.float32), g.random((4, 64, 64, 3), np.float32)
+    params0 = init_params(6, SEED)
+    cfg32 = TrainConfig(precision="float32", batch_size=4, tile_size=64)
+    card_loss, _ = one_train_step(cfg32, device, xb, yb, params0)
+    cpu_loss, _ = one_train_step(cfg32, "cpu", xb, yb, params0)
+    mixed_loss, mixed_grads = one_train_step(TrainConfig(batch_size=4, tile_size=64), device, xb,
+                                             yb, params0)
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    phase("train", step="card_vs_cpu", float32_loss_card=f"{card_loss:.7f}",
+          float32_loss_cpu=f"{cpu_loss:.7f}", rel=f"{rel:.2e}", mixed_loss=f"{mixed_loss:.7f}")
+    if not (rel < TRAIN_STEP_RTOL and np.isfinite(mixed_loss)
+            and all(gr.dtype == torch.float32 and bool(torch.isfinite(gr).all())
+                    for gr in mixed_grads)):
+        raise AssertionError("the card's training step disagrees with the CPU's or is not finite")
+
+    # 3. train_device at the defaults, every host sync counted.
+    names = sorted(f[: -len(".input.npy")] for f in os.listdir(data_dir) if f.endswith(".input.npy"))
+    x_imgs = np.stack([np.load(os.path.join(data_dir, f"{n}.input.npy")) for n in names] + [noisy])
+    y_imgs = np.stack([np.load(os.path.join(data_dir, f"{n}.target.npy")) for n in names] + [clean])
+    cfg = TrainConfig(data_dir=data_dir, result_dir=os.path.join(tmp, "device"),
+                      num_epochs=TRAIN_EPOCHS)
+    records, syncs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # what earlier phases still hold
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            params = train_device(cfg, x_imgs.astype(np.float32), y_imgs.astype(np.float32),
+                                  log_fn=lambda rec: (records.append(rec), syncs.append(sum(
+                                      "synchroniz" in str(w.message) for w in caught))),
+                                  device=device)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    peak_mib = (torch.cuda.max_memory_allocated() - resident) / 2**20
+    gflop = 3 * cfg.batch_size * unet_flops(cfg.tile_size, cfg.tile_size, cfg.in_channels) / 1e9
+    for i, rec in enumerate(records):
+        ms = 1e3 * cfg.batch_size / rec["images_per_sec"]
+        phase("train", step="train_device", epoch=rec["epoch"], loss=f"{rec['loss']:.6f}",
+              lr=f"{rec['lr']:.3e}", ms_per_step=f"{ms:.3f}",
+              images_per_s=f"{rec['images_per_sec']:.1f}", gflop_per_step=f"{gflop:.1f}",
+              bf16_bound_share=f"{gflop / BF16_FLOPS_PER_S * 1e9 / (ms / 1e3):.4f}",
+              host_syncs=syncs[i] - (syncs[i - 1] if i else 0))
+    phase("train", step="train_device", peak_above_resident_mib=f"{peak_mib:.0f}",
+          resident_mib=f"{resident / 2**20:.0f}", images=len(x_imgs),
+          batch=cfg.batch_size, tile=cfg.tile_size, precision=cfg.precision, loss_fn=cfg.loss)
+    losses = [r["loss"] for r in records]
+    if len(losses) != TRAIN_EPOCHS or not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+        raise AssertionError(f"train_device's epoch losses are not finite and falling: {losses}")
+    if any(syncs[i] - syncs[i - 1] != 1 for i in range(1, len(syncs))):
+        raise AssertionError(f"train_device synced the host other than once per epoch: {syncs}")
+
+    # train_device once more under the profiler (one epoch of HOST_FED_STEPS), then
+    # 4. the host-fed train(): one epoch, then one more under the profiler.
+    short = dict(data_dir=data_dir, num_epochs=1, steps_per_epoch=HOST_FED_STEPS)
+    profile_training("train_device_profile", lambda: train_device(
+        TrainConfig(result_dir=os.path.join(tmp, "device_profiled"), **short), x_imgs, y_imgs,
+        device=device))
+    rec = []
+    train(TrainConfig(result_dir=os.path.join(tmp, "host"), **short), log_fn=rec.append,
+          device=device)
+    profile_training("train_host_fed_profile", lambda: train(
+        TrainConfig(result_dir=os.path.join(tmp, "host_profiled"), **short), device=device))
+    phase("train", step="train_host_fed", steps=HOST_FED_STEPS,
+          ms_per_step=f"{1e3 * cfg.batch_size / rec[0]['images_per_sec']:.3f}",
+          images_per_s=f"{rec[0]['images_per_sec']:.1f}", loss=f"{rec[0]['loss']:.6f}")
+    if not np.isfinite(rec[0]["loss"]):
+        raise AssertionError("train() returned a non-finite loss")
+
+    # 5. The export, loaded by Filter("RT"), on the rendered noisy pair.
+    tza = os.path.join(tmp, "rt_ldr_alb.tza")
+    export_weights(params, tza)
+    fdev = Device()
+    fdev.commit()
+    f = fdev.new_filter("RT")
+    out = np.zeros((TRAIN_RES, TRAIN_RES, 3), np.float32)
+    f.set_image("color", np.ascontiguousarray(noisy[..., :3]))
+    f.set_image("albedo", np.ascontiguousarray(noisy[..., 3:6]))
+    f.set_image("output", out)
+    with open(tza, "rb") as fh:
+        f.set_data("weights", fh.read())
+    f.commit()
+    f.execute()
+    if not (np.isfinite(out).all() and 0.0 <= out.min() and out.max() <= 1.0):
+        raise AssertionError("the exported weights' Filter output is not a finite [0,1] image")
+    paths = {k: os.path.join(tmp, f"{k}.pfm") for k in ("denoised", "noisy", "clean")}
+    save_image(paths["denoised"], out)
+    save_image(paths["noisy"], np.clip(noisy[..., :3], 0.0, 1.0))
+    save_image(paths["clean"], np.clip(clean, 0.0, 1.0))
+    scores = {}
+    for k in ("denoised", "noisy"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = compare_image.main([paths[k], paths["clean"], "--metric", "psnr", "ssim"])
+        if rc != 0:
+            raise AssertionError(f"compare_image exited {rc}")
+        scores[k] = dict(line.split(" = ") for line in buf.getvalue().splitlines())
+    phase("train", step="export_filter", **{f"{k}_{m}": v for k, d in scores.items()
+                                            for m, v in d.items()})
+
+    # 6. The CLI, as a user runs it, at the script's TrainConfig.
+    cli_tza = os.path.join(tmp, "cli", "rt_ldr_alb.tza")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mygpuraytracer_tpu_torch.apps.train_denoiser", "rt_ldr_alb",
+         data_dir, str(CLI_EPOCHS), "--out", cli_tza, "--result-dir", os.path.join(tmp, "cli_r")],
+        capture_output=True, text=True, timeout=600, cwd=HERE)
+    phase("train", step="train_denoiser_cli", rc=proc.returncode,
+          s=f"{time.perf_counter() - t:.1f}", tza=os.path.isfile(cli_tza),
+          out=repr(" | ".join(proc.stdout.strip().splitlines()[-3:])))
+    if proc.returncode != 0 or not os.path.isfile(cli_tza):
+        raise AssertionError(f"train_denoiser failed:\n{proc.stdout}\n{proc.stderr}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -1902,6 +2124,9 @@ def main() -> int:
                     raise AssertionError(f"app did not write one *{suffix}: {pngs}")
             if len(pngs) != len(suffixes):
                 raise AssertionError(f"app wrote {len(pngs)} PNGs, not {len(suffixes)}: {pngs}")
+
+    # ---- train: the denoiser's training toolkit on the card --------------------------
+    train_phase(device)
 
     kernels = [{
         "name": "k1_megakernel",

@@ -14,7 +14,12 @@ path:
 - ``denoise`` : TZA weights, transfer functions, the U-Net as an nn.Module,
                 the OIDN-style Device/Filter API with tiled execute and
                 device-resident DeviceBuffers
-- ``apps``    : the ``raytrace`` and ``denoise`` (oidnDenoise) command lines
+- ``train``   : the denoiser's training toolkit: SSIM and the losses, tile
+                datasets and rendered training pairs, the host-fed and
+                device-resident trainers, export to TZA, Infer, find_lr
+- ``apps``    : the ``raytrace``, ``denoise`` (oidnDenoise), ``benchmark``,
+                ``preprocess``, ``compare_image``, ``visualize`` and
+                ``train_denoiser`` command lines
 - ``csrc``    : hand-written CUDA C++ for sm_90a, built by ``_build.py``
 
 It imports torch and numpy, never jax nor the JAX package. Entry points take

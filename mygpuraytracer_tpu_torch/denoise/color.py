@@ -151,24 +151,26 @@ def make_transfer(kind: str, input_scale=1.0) -> TransferFunction:
 def autoexposure(image: torch.Tensor, key: float = 0.18, k: int = 16,
                  eps: float = 1e-8) -> torch.Tensor:
     """input_scale = key / 2^mean(log2 L) over a KxK-downsampled luminance
-    map of the HxWx3 ``image``; a 0-d tensor on the image's device."""
-    h, w = image.shape[0], image.shape[1]
+    map of the [..., H, W, 3] ``image``: one scale per image of the leading
+    axes (0-d for one HxWx3 image), on the image's device."""
+    h, w = image.shape[-3], image.shape[-2]
+    lead = image.shape[:-3]
     L = luminance(sanitize(image, 0.0, math.inf))
     hk = max((h + k // 2) // k, 1)
     wk = max((w + k // 2) // k, 1)
     ph, pw = hk * ((h + hk - 1) // hk), wk * ((w + wk - 1) // wk)
-    Lp = torch.zeros((ph, pw), dtype=L.dtype, device=L.device)
-    Lp[:h, :w] = L
-    cnt = torch.zeros_like(Lp)
+    Lp = torch.zeros((*lead, ph, pw), dtype=L.dtype, device=L.device)
+    Lp[..., :h, :w] = L
+    cnt = torch.zeros((ph, pw), dtype=L.dtype, device=L.device)
     cnt[:h, :w] = 1.0
     bh, bw = ph // hk, pw // wk
-    Ld = Lp.reshape(hk, bh, wk, bw).sum(dim=(1, 3))
+    Ld = Lp.reshape(*lead, hk, bh, wk, bw).sum(dim=(-3, -1))
     Cd = cnt.reshape(hk, bh, wk, bw).sum(dim=(1, 3))
     Ld = Ld / torch.clamp_min(Cd, 1.0)
 
     mask = Ld > eps
-    num = torch.where(mask, torch.log2(torch.clamp_min(Ld, eps)), 0.0).sum()
-    den = mask.sum()
+    num = torch.where(mask, torch.log2(torch.clamp_min(Ld, eps)), 0.0).sum(dim=(-2, -1))
+    den = mask.sum(dim=(-2, -1))
     mean_log = num / torch.clamp_min(den, 1)
     scale = key / torch.exp2(mean_log)
     return torch.where(den == 0, 1.0, scale)

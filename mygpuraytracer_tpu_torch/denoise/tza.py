@@ -1,4 +1,4 @@
-"""Tensor Archive (TZA) reader.
+"""Tensor Archive (TZA) reader and writer.
 
 Fresh implementation of the OIDN weights container from its format spec
 (authoritative sources: core/tza.cpp:27-100 and training/tza.py):
@@ -22,12 +22,13 @@ import numpy as np
 MAGIC = 0x41D7
 VERSION = (2, 0)
 
-_CHAR_TO_DTYPE = {
-    "f": np.dtype(np.float32),
-    "h": np.dtype(np.float16),
-    "b": np.dtype(np.int8),
-    "B": np.dtype(np.uint8),
+_DTYPE_TO_CHAR = {
+    np.dtype(np.float32): "f",
+    np.dtype(np.float16): "h",
+    np.dtype(np.int8): "b",
+    np.dtype(np.uint8): "B",
 }
+_CHAR_TO_DTYPE = {v: k for k, v in _DTYPE_TO_CHAR.items()}
 
 
 def read_tza(path_or_bytes) -> dict[str, tuple[np.ndarray, str]]:
@@ -76,3 +77,32 @@ def read_tza(path_or_bytes) -> dict[str, tuple[np.ndarray, str]]:
         arr = np.frombuffer(buf, dtype=dtype, count=n_elems, offset=offset).reshape(dims)
         out[name] = (arr.copy(), layout)
     return out
+
+
+def write_tza(path: str, tensors: dict[str, tuple[np.ndarray, str]]) -> None:
+    """Write ``{name: (array, layout)}`` in table order, each tensor 64-byte
+    aligned, the table after the last one (byte for byte the JAX package's
+    writer)."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<HBBQ", MAGIC, VERSION[0], VERSION[1], 0))
+        table = []
+        for name, (arr, layout) in tensors.items():
+            arr = np.ascontiguousarray(arr)
+            if len(layout) != arr.ndim:
+                raise ValueError(f"layout '{layout}' does not match rank of '{name}'")
+            if arr.dtype not in _DTYPE_TO_CHAR:
+                raise ValueError(f"unsupported dtype {arr.dtype}")
+            f.write(b"\x00" * ((-f.tell()) % 64))
+            table.append((name, arr.shape, layout, _DTYPE_TO_CHAR[arr.dtype], f.tell()))
+            f.write(arr.tobytes())
+        f.write(b"\x00" * ((-f.tell()) % 64))
+        table_offset = f.tell()
+        f.write(struct.pack("<I", len(table)))
+        for name, shape, layout, dchar, offset in table:
+            encoded = name.encode()
+            f.write(struct.pack("<H", len(encoded)) + encoded)
+            f.write(struct.pack(f"<B{len(shape)}I", len(shape), *shape))
+            f.write(layout.encode("ascii") + dchar.encode("ascii"))
+            f.write(struct.pack("<Q", offset))
+        f.seek(4)
+        f.write(struct.pack("<Q", table_offset))

@@ -63,8 +63,17 @@ class UNet(nn.Module):
         })
 
     def _conv(self, name: str, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
-        y = self.convs[name](x)
-        return F.relu(y) if relu else y
+        # JAX's _conv_relu: the weights and the bias take the activations'
+        # dtype (bf16 under "mixed", over float32 master weights), and ReLU
+        # runs in it. Under autograd it is max(y, 0), whose gradient splits
+        # in half where y is exactly 0, as jnp.maximum's does (F.relu's is 0
+        # there; zero biases over dead inputs make such ties common in
+        # training); without autograd F.relu gives the same values.
+        conv = self.convs[name]
+        y = F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=1)
+        if not relu:
+            return y
+        return torch.maximum(y, y.new_zeros(())) if y.requires_grad else F.relu(y)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[2] % UNET_ALIGNMENT or x.shape[3] % UNET_ALIGNMENT:
@@ -110,9 +119,29 @@ def params_from_jax(params: dict) -> UNet:
     return UNet.from_tza(tensors)
 
 
+def jax_tree(net: UNet, of=lambda p: p) -> dict:
+    """``of(parameter)`` for every conv's weight and bias in the JAX
+    package's layout ``{name: {'w': HWIO, 'b': [O]}}``, as float32 numpy
+    arrays (the trainer also lays out Adam's moments this way)."""
+    tree = {}
+    for name, conv in net.convs.items():
+        w = of(conv.weight).detach().float().cpu().numpy()
+        tree[name] = {"w": np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0))),
+                      "b": of(conv.bias).detach().float().cpu().numpy().copy()}
+    return tree
+
+
+def params_to_jax(net: UNet) -> dict:
+    """The inverse of :func:`params_from_jax`: the JAX package's parameter
+    dict ``{name: {'w': HWIO, 'b': [O]}}`` as float32 numpy arrays."""
+    return jax_tree(net)
+
+
 def init_unet_tensors(in_channels: int, out_channels: int = 3, seed: int = 0) -> dict:
-    """He-initialized weights in TZA form, from a seeded ``torch.Generator``
-    (the JAX package's random init draws other numbers)."""
+    """He-initialized weights in TZA form, from a seeded ``torch.Generator``.
+    The JAX package's ``init_unet_params`` draws its weights with
+    ``jax.random.normal``, so the two inits differ; to start both from the
+    same weights, export one and load it (``TrainConfig.init_from``)."""
     gen = torch.Generator().manual_seed(seed)
     tensors = {}
     for name, cin, cout in conv_specs(in_channels, out_channels):
@@ -146,6 +175,14 @@ def unet_apply(net: UNet, x: torch.Tensor) -> torch.Tensor:
     """Forward pass in the JAX package's layout: x [N, H, W, C] -> [N, H, W, 3]."""
     with torch.inference_mode(), no_tf32():
         return net(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def unet_train_apply(net: UNet, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The training forward, with autograd: x [N, H, W, C] cast to ``dtype``
+    (bfloat16 under "mixed"), the output [N, H, W, 3] back in float32, as
+    the JAX trainer computes ``unet_apply(params, x.astype(dtype))``. The
+    caller sets TF32 (:func:`no_tf32` around forward and backward)."""
+    return net(x.to(dtype).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).float()
 
 
 def round_up(x: int, m: int) -> int:

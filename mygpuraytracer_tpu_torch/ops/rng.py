@@ -70,22 +70,76 @@ def split(key: Key, num: int = 2) -> list[Key]:
     return [fold_in(key, i) for i in range(num)]
 
 
+def _mul32(a, b):
+    """``(a * b) mod 2**32`` of words below 2**32 without int64 overflow."""
+    return ((((a >> 16) * b & 0xFFFF) << 16) + (a & 0xFFFF) * b) & MASK32
+
+
+def _randint_words(higher, lower, minval: int, maxval: int):
+    """``jax/_src/random.py::_randint``'s reduction of two 32-bit words
+    (Python ints or int64 tensors) into ``[minval, maxval)``: uint32
+    arithmetic that wraps, then the int32 view."""
+    if not -(2**31) <= minval < maxval <= 2**31 - 1:
+        raise ValueError(f"need int32 bounds with minval < maxval, got {minval}, {maxval}")
+    span = (maxval - minval) & MASK32
+    multiplier = (2**16) % span
+    multiplier = ((multiplier * multiplier) & MASK32) % span
+    offset = (_mul32(higher % span, multiplier) + lower % span) & MASK32
+    value = (minval + offset % span) & MASK32
+    return value - ((value >> 31) << 32)
+
+
 def randint(key: Key, minval: int = 0, maxval: int = 2**31 - 1) -> int:
     """``jax.random.randint(key, (), minval, maxval, dtype=int32)`` for
     ``minval < maxval`` within int32, as ``jax/_src/random.py::_randint``
     computes it: two 32-bit words under ``split(key)``, reduced modulo the
     span with uint32 arithmetic that wraps."""
-    if not -(2**31) <= minval < maxval <= 2**31 - 1:
-        raise ValueError(f"need int32 bounds with minval < maxval, got {minval}, {maxval}")
     k1, k2 = split(key)
     higher, lower = (int(random_bits(k, 1)[0]) for k in (k1, k2))
-    span = (maxval - minval) & MASK32
-    multiplier = (2**16) % span
-    multiplier = ((multiplier * multiplier) & MASK32) % span
-    offset = (((higher % span) * multiplier) & MASK32) + (lower % span)
-    offset = (offset & MASK32) % span
-    value = (minval + offset) & MASK32
-    return value - 2**32 if value >= 2**31 else value
+    return _randint_words(higher, lower, minval, maxval)
+
+
+def split_words(key, num: int):
+    """``jax.random.split`` of a key whose words may be int64 tensors (a batch
+    of keys): the words of ``num`` keys on a new last axis."""
+    idx = torch.arange(num, dtype=torch.int64)
+    k0, k1 = key
+    if isinstance(k0, torch.Tensor):
+        idx = idx.to(k0.device)
+        k0, k1 = k0[..., None], k1[..., None]
+    return threefry2x32(k0, k1, 0, idx)
+
+
+def _shaped_bits(key, shape, device):
+    """The 32-bit words of a draw of ``shape`` under ``key`` (int words, or
+    int64 tensors for a batch of keys, whose shape leads the result)."""
+    shape = tuple(shape)
+    numel = 1
+    for s in shape:
+        numel *= s
+    k0, k1 = key
+    if isinstance(k0, torch.Tensor):
+        device = k0.device
+        k0, k1 = k0[..., None], k1[..., None]
+    idx = torch.arange(numel, dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(k0, k1, idx >> 32, idx & MASK32)
+    bits = y0 ^ y1
+    return bits.reshape(bits.shape[:-1] + shape)
+
+
+def randint_shaped(key, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, dtype=int32)`` as an
+    int64 tensor; ``key`` may be a batch of keys (:func:`split_words`)."""
+    w0, w1 = split_words(key, 2)
+    higher = _shaped_bits((w0[..., 0], w1[..., 0]), shape, device)
+    lower = _shaped_bits((w0[..., 1], w1[..., 1]), shape, device)
+    return _randint_words(higher, lower, minval, maxval)
+
+
+def bernoulli(key, p: float, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a float ``p``: float32
+    uniforms below ``p``; ``key`` may be a batch of keys."""
+    return bits_to_uniform(_shaped_bits(key, shape, device)) < p
 
 
 def random_bits(key: Key, numel: int, device="cpu", offset: int = 0) -> torch.Tensor:

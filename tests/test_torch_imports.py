@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: no JAX, no JAX package, CUDA by default.
+"""The PyTorch port stands alone: no JAX, no optax, no JAX package, CUDA by
+default.
 
 The machine with the GPU has no JAX, so the port and chip_smoke.py must
-import with ``jax`` (and the JAX package) blocked.
+import with ``jax``, ``optax`` (and the JAX package) blocked.
 """
 
 import inspect
@@ -26,6 +27,7 @@ _BLOCK_JAX = (
     "import sys\n"
     "sys.modules['jax'] = None\n"
     "sys.modules['jaxlib'] = None\n"
+    "sys.modules['optax'] = None\n"
     "sys.modules['mygpuraytracer_tpu'] = None\n"
 )
 
@@ -41,7 +43,9 @@ def test_imports_with_jax_blocked(target):
         body = "".join(f"import {m}\n" for m in MODULES)
     else:
         body = "import chip_smoke\n"
-    code = _BLOCK_JAX + body + "assert 'jax' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
+    code = _BLOCK_JAX + body + (
+        "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
+        "assert 'jax' not in loaded and 'optax' not in loaded\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -50,7 +54,8 @@ def test_imports_with_jax_blocked(target):
 @pytest.mark.parametrize("path", SOURCES)
 def test_source_names_no_jax(path):
     text = (REPO / path).read_text()
-    assert not re.search(r"^\s*(import|from)\s+jax", text, re.M), f"{path} imports jax"
+    assert not re.search(r"^\s*(import|from)\s+(jax|optax)\b", text, re.M), \
+        f"{path} imports jax or optax"
     assert not re.search(r"mygpuraytracer_tpu\.(?!_torch)|import mygpuraytracer_tpu\b(?!_torch)",
                          text), f"{path} names the JAX package as a module"
 
@@ -65,7 +70,15 @@ def test_scan_covers_the_mesh_path():
                    "mygpuraytracer_tpu_torch.ops.compaction",
                    "mygpuraytracer_tpu_torch.ops.intersect",
                    "mygpuraytracer_tpu_torch.utils.timer",
-                   "mygpuraytracer_tpu_torch.apps.benchmark"):
+                   "mygpuraytracer_tpu_torch.apps.benchmark",
+                   "mygpuraytracer_tpu_torch.train", "mygpuraytracer_tpu_torch.train.ssim",
+                   "mygpuraytracer_tpu_torch.train.losses", "mygpuraytracer_tpu_torch.train.dataset",
+                   "mygpuraytracer_tpu_torch.train.train", "mygpuraytracer_tpu_torch.train.export",
+                   "mygpuraytracer_tpu_torch.train.infer", "mygpuraytracer_tpu_torch.train.find_lr",
+                   "mygpuraytracer_tpu_torch.apps.preprocess",
+                   "mygpuraytracer_tpu_torch.apps.compare_image",
+                   "mygpuraytracer_tpu_torch.apps.visualize",
+                   "mygpuraytracer_tpu_torch.apps.train_denoiser"):
         assert module in MODULES
     for path in ("mygpuraytracer_tpu_torch/csrc/mesh_hit.cu",
                  "mygpuraytracer_tpu_torch/csrc/megakernel.cu",
@@ -114,6 +127,16 @@ def test_entry_points_default_to_cuda():
     assert _default(benchmark.bench_render, "device") == "cuda"
     assert _default(benchmark.bench_denoise, "device") == "cuda"
     assert _default(make_empty_cache, "device") == "cuda"
+    from mygpuraytracer_tpu_torch.apps import preprocess, train_denoiser
+    from mygpuraytracer_tpu_torch.train import dataset, find_lr, infer
+    from mygpuraytracer_tpu_torch.train.train import train, train_device
+
+    for fn in (train, train_device, find_lr.find_lr, dataset.render_training_pairs,
+               infer.Infer.__init__, infer.ssim):
+        assert _default(fn, "device") == "cuda", fn
+    assert _default(train, "mesh") is None
+    assert preprocess.parse_args(["hdr"]).device == "cuda"
+    assert train_denoiser.parse_args([]).device == "cuda"
 
 
 def test_chip_smoke_refuses_without_cuda():
