@@ -9,9 +9,10 @@ the 23,328-face spaceship in the Cornell box, textured and bump-mapped
 wavefront and the mesh tiers' CUDA kernel (K2/K3/K4); and cornellShip
 through the bounce megakernel K5 with the K6 uniforms for its raygen; all
 denoised with the U-Net, the Cornell render also through the OIDN-style
-Filter API and the two apps that call it; and the denoiser's trainer, on
-pairs rendered through K1. Phases, each printing one line with its
-elapsed seconds:
+Filter API and the two apps that call it; the denoiser's trainer, on
+pairs rendered through K1; rendering, the Filter and the trainer over a
+mesh of devices; the preview app's session; and the port's bench. Phases,
+each printing one line with its elapsed seconds:
 
 1. device      -- the card's name and power limit (nvidia-smi); fails without CUDA
 2. build       -- one nvcc per csrc/*.cu, in parallel, into the gitignored build
@@ -126,14 +127,50 @@ elapsed seconds:
                   scored by the compare_image app against the clean image; and
                   `python -m mygpuraytracer_tpu_torch.apps.train_denoiser` for
                   2 epochs in a subprocess
+15. multichip  -- parallel/ over the mesh ("cuda:0", "cuda:0"), the card named
+                  twice (the split, the per-device launches and the merge;
+                  not scaling): Cornell 800x800, 32 iterations, in sample
+                  mode (one K1 launch per device, one psum) against the
+                  sequential Renderer (rtol and atol 1e-4) and in pixel mode
+                  through K1 against a sequential render of one iteration per
+                  launch (bit for bit); pixel mode on cornellShip under
+                  bounce_megakernel (K5, 2 iterations) and on cornellShipTex
+                  through the wavefront (1 iteration), each bit for bit
+                  against its single-device render; the Filter's mesh at 1080p
+                  and 4K RT (hdr + alb + nrm) with the default maxMemoryMB and
+                  with 256, bit for bit against the single-device execute;
+                  the trainer's mesh: float32 steps against the single
+                  device's (loss rtol 1e-4; gradients within 1e-5 of the
+                  largest for l1, 1e-4 for l1_msssim and on the mesh of the
+                  card and the CPU, whose replicas are copies) and train()
+                  at TrainConfig's defaults, ms per step beside the single
+                  device's; the
+                  raytrace app with --multichip sample and pixels, which on
+                  one card logs the sequential path
+16. preview    -- apps/preview.py's session on Cornell 800x800 through K1:
+                  frames over localhost, a camera move that restarts the
+                  accumulation (resets, K1 launches counted), a save with the
+                  denoise (3 PNGs)
+17. bench      -- `python -m mygpuraytracer_tpu_torch.bench` in a subprocess:
+                  its last JSON line has every key of bench.py, its
+                  Msamples/s and ms values non-null
 
 It prints a JSON line of per-kernel numbers and, last, one JSON object
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 It imports nothing of JAX.
+
+    python3 chip_smoke.py --ab ROOT [ROOT ...] [--pairs N]
+
+times whole-image K1 and K5 launches of the package in each ROOT (a
+checkout of this repo; another commit's from ``git archive``, in a
+gitignored directory) as the kernels line does, each tree in processes of
+its own taken in turns for N rounds, and prints each run, then per tree
+the medians, the ratios to the first tree and the SASS instruction counts.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import copy
@@ -145,11 +182,158 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
 import numpy as np
 import torch
+
+# ---- K1 and K5 of several trees timed in turns (--ab) --------------------------------
+# These run before the port's imports below: ``--time-kernels ROOT`` times
+# the package of another checkout, which may lack this tree's modules.
+
+
+def cuda_ms(fn, repeats: int = 1) -> float:
+    """Mean device time of fn() over ``repeats`` calls, by CUDA events."""
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.mean(times))
+
+
+def time_k1(run, acc: torch.Tensor, repeats: int = 5) -> float:
+    """K1's median device ms per launch over ``repeats`` launches of
+    ``run()`` into zeroed accumulators, after one warm-up."""
+    times = []
+    for _ in range(repeats + 1):
+        acc.zero_()
+        times.append(cuda_ms(run))
+    return float(np.median(times[1:]))
+
+
+def host_ms(fn, repeats: int) -> float:
+    """Median host time of one call of fn() (it enqueues its work and
+    returns), the card idle at the start."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t))
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def time_kernels(root: str, repeats: int = 9, calls: int = 10) -> int:
+    """K1 and K5 of the package in ``root`` as the kernels line times them,
+    as whole-image launches: K1 per 16-iteration launch on the Cornell box
+    and K5 per launch on cornellShip's iteration-1 rays (800x800, depth 8,
+    seed 0). One JSON line: K1 single launches into a zeroed accumulator
+    (time_k1), K1 and K5 back to back (``calls`` launches per event pair),
+    each the median of ``repeats``, and each wrapper's host ms per call.
+    It calls only what every tree since K1's and K5's redesigns has."""
+    sys.path.insert(0, os.path.abspath(root))
+    import mygpuraytracer_tpu_torch as pkg
+    from mygpuraytracer_tpu_torch.config import RenderOptions
+    from mygpuraytracer_tpu_torch.ops import prng, rng
+    from mygpuraytracer_tpu_torch.render import Renderer, megakernel
+    from mygpuraytracer_tpu_torch.render.camera import generate_camera_rays
+    from mygpuraytracer_tpu_torch.scene import load_scene
+    from mygpuraytracer_tpu_torch.scene.builtin import cornell_box
+
+    device, n, key = torch.device("cuda"), 800 * 800, rng.make_key(0)
+    r = Renderer(cornell_box(resolution=(800, 800), depth=8), RenderOptions(megakernel=True),
+                 device=device)
+    acc = torch.zeros((9, n), device=device)
+    record = megakernel.scene_record(r.meta, r.dev.camera)
+    k1 = lambda: megakernel.megakernel_accumulate(r.dev, r.meta, r.options, acc, 1, 16, key,
+                                                  record=record)
+    scene = load_scene(os.path.join(root, "scenes", "cornellShip.txt"))
+    scene.set_resolution(800, 800)
+    scene.state.trace_depth = 8
+    s = Renderer(scene, RenderOptions(megakernel=True, bounce_megakernel=True, rng="auto"),
+                 device=device)
+    acc5 = torch.zeros((9, n), device=device)
+    record5 = megakernel.scene_record(s.meta, s.dev.camera)
+    ikey = rng.iteration_key(key, 1)
+    U = prng.iteration_uniforms(s.options, ikey, 1, 4, n, device)
+    o, d = generate_camera_rays(s.dev.camera, s.meta.resolution, s.options, U)
+    rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z]).contiguous()
+    k5 = lambda: megakernel.bounce_launch(s.dev, s.meta, s.options, acc5, rays, 1, ikey, record5)
+    burst = lambda fn: float(np.median([cuda_ms(lambda: [fn() for _ in range(calls)])
+                                        for _ in range(repeats)])) / calls
+    k1(), k5()  # warm-up
+    out = {"package": os.path.dirname(pkg.__file__), "k1_single_ms": time_k1(k1, acc, repeats),
+           "k1_burst_ms": burst(k1), "k5_burst_ms": burst(k5),
+           "k1_host_ms": host_ms(k1, repeats), "k5_host_ms": host_ms(k5, repeats)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def kernel_instructions(root: str) -> dict:
+    """SASS instructions of the plain whole-image builds of K1 and K5 in
+    ``root``'s built libraries (sass_opcodes)."""
+    built = os.path.join(root, "mygpuraytracer_tpu_torch", "_build")
+    out = {}
+    for lib, kernel in (("libmegakernel_", "k1_kernel"), ("libbounce_", "k5_kernel")):
+        path = max((os.path.join(built, f) for f in os.listdir(built) if f.startswith(lib)),
+                   key=os.path.getmtime)
+        counts = sass_opcodes(path)
+        # the plain build of a whole image: <false> before ranges, <false, false> since
+        plain = [k for k in counts if f"{kernel}ILb0E" in k]
+        name = next((k for k in plain if f"{kernel}ILb0ELb0E" in k), plain[0])
+        out[kernel] = sum(counts[name].values())
+    return out
+
+
+def ab_main(argv) -> int:
+    """``--ab ROOT [ROOT ...] [--pairs N]``: time_kernels of each tree in a
+    process of its own, ``N`` rounds in turns (the order reversed every
+    other round: a b, b a, ...), then per tree the median of its rounds, the
+    median ratio of each tree to the first within a round, the rounds in
+    which it was slower, and its kernels' SASS instruction counts."""
+    parser = argparse.ArgumentParser(prog="chip_smoke.py --ab")
+    parser.add_argument("roots", nargs="+")
+    parser.add_argument("--pairs", type=int, default=10)
+    args = parser.parse_args(argv)
+    roots, pairs = args.roots, args.pairs
+    if not torch.cuda.is_available():
+        print("chip_smoke --ab: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    runs = {root: [] for root in roots}
+    for rnd in range(pairs):
+        for root in (roots if rnd % 2 == 0 else roots[::-1]):
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-kernels",
+                                   root], capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"timing {root} failed:\n{proc.stdout}\n{proc.stderr}")
+            runs[root].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            print(json.dumps({"round": rnd, "root": root, **runs[root][-1]}), flush=True)
+    keys = ("k1_single_ms", "k1_burst_ms", "k5_burst_ms", "k1_host_ms", "k5_host_ms")
+    base = runs[roots[0]]
+    for root in roots:
+        ratios = {k: [a[k] / b[k] for a, b in zip(runs[root], base)] for k in keys}
+        print(json.dumps({"root": root, "rounds": pairs,
+                          "sass_instructions": kernel_instructions(root),
+                          **{k: float(np.median([run[k] for run in runs[root]])) for k in keys},
+                          **{f"{k}_range": [min(run[k] for run in runs[root]),
+                                            max(run[k] for run in runs[root])] for k in keys},
+                          **{f"{k}_ratio_to_first": float(np.median(v)) for k, v in ratios.items()},
+                          **{f"{k}_rounds_slower": sum(x > 1.0 for x in v)
+                             for k, v in ratios.items()}}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--time-kernels"]:
+    sys.exit(time_kernels(sys.argv[2]))
 
 import mygpuraytracer_tpu_torch as port
 from mygpuraytracer_tpu_torch import _build
@@ -170,6 +354,10 @@ from mygpuraytracer_tpu_torch.scene.builtin import cornell_box, cornell_glass
 from mygpuraytracer_tpu_torch.scene.device_scene import build_device_scene
 from mygpuraytracer_tpu_torch.scene.structs import GeomType
 from mygpuraytracer_tpu_torch.apps import compare_image
+from mygpuraytracer_tpu_torch.apps.preview import PreviewSession, make_server
+from mygpuraytracer_tpu_torch.parallel import (make_mesh, render_multichip_sample,
+                                               sharded_render_step)
+from mygpuraytracer_tpu_torch.parallel.mesh import replicate
 from mygpuraytracer_tpu_torch.denoise.unet import params_from_jax
 from mygpuraytracer_tpu_torch.train.dataset import render_training_pairs
 from mygpuraytracer_tpu_torch.train.export import export_weights
@@ -330,6 +518,28 @@ HOST_FED_STEPS = 8  # train(): one epoch of this many steps, then one under the 
 CLI_EPOCHS = 2  # apps/train_denoiser.py at the script's own TrainConfig
 # One float32 step (TF32 off) on the card against the CPU: summation order only.
 TRAIN_STEP_RTOL = 1e-4
+
+# Phase multichip: the mesh names the one card twice, so the split, the
+# per-device launches and the merge run as on two cards (semantics, not
+# scaling). The sample mode against the sequential Renderer: rtol and atol
+# 1e-4 (the JAX tests' bar: each device's K1 sums round in their own
+# order); every pixel-mode and Filter check bit for bit.
+MULTICHIP_DEVICES = ("cuda:0", "cuda:0")
+MULTICHIP_ITERS = 32  # Cornell 800x800, depth 8: sample and pixel modes through K1
+MULTICHIP_K5_ITERS = 2  # cornellShip under bounce_megakernel, pixel mode
+MULTICHIP_WAVEFRONT_ITERS = 1  # cornellShipTex on the wavefront, pixel mode
+MULTICHIP_TOL = 1e-4
+MULTICHIP_FILTER_SIZES = ((1920, 1080), (3840, 2160))
+MULTICHIP_FILTER_MEMORY = (3000, 256)  # the default maxMemoryMB, and one that forces many tiles
+# The mesh step's "l1" gradients against the single device's on the card:
+# within this share of the largest (the CPU tests' bar,
+# tests/test_torch_train_mesh.py).
+MESH_GRAD_REL = 1e-5
+MULTICHIP_TRAIN_STEPS = 4  # train() on the mesh at TrainConfig's defaults
+MULTICHIP_APP_ITERS = 8
+# Phase preview: a PreviewSession on Cornell 800x800 (K1, batches of 8).
+PREVIEW_ITERS = 64
+PREVIEW_BATCH = 8
 
 T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -513,7 +723,8 @@ def sass_load_counts() -> dict:
            for where in ("global", "shared")}
     k1_lib = next(p for p in _build.build() if os.path.basename(p).startswith("libmegakernel_"))
     k1 = sass_opcodes(k1_lib)
-    for build, word in (("k1_kernel", "k1_kernelILb0E"), ("k1_counting", "k1_kernelILb1E")):
+    for build, word in (("k1_kernel", "k1_kernelILb0ELb0E"),
+                        ("k1_counting", "k1_kernelILb1ELb0E")):
         ops = pick(k1, word)
         out[build] = {op: ops[op] for op in LOAD_OPCODES if ops[op]}
         out[build]["all"] = sum(ops.values())
@@ -601,19 +812,6 @@ def queued_ms(fn, calls: int = 20, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
-def cuda_ms(fn, repeats: int = 1) -> float:
-    """Mean device time of fn() over ``repeats`` calls, by CUDA events."""
-    times = []
-    for _ in range(repeats):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.mean(times))
-
-
 def ray_bounces(dev, meta, options, iterations) -> tuple[int, int, int, torch.Tensor]:
     """(ray-bounces, Philox calls, necessary cluster visits, each path's
     bounces [iterations, N]) that ``iterations`` of this scene execute under
@@ -663,16 +861,6 @@ def lockstep_lane_use(paths: torch.Tensor) -> float:
     over warps and iterations of the warp's longest path)."""
     warps = torch.nn.functional.pad(paths, (0, (-paths.shape[1]) % 32)).view(paths.shape[0], -1, 32)
     return float(paths.sum()) / float(32 * warps.amax(dim=2).sum())
-
-
-def time_k1(run, acc: torch.Tensor, repeats: int = 5) -> float:
-    """K1's median device ms per launch over ``repeats`` launches of
-    ``run()`` into zeroed accumulators, after one warm-up."""
-    times = []
-    for _ in range(repeats + 1):
-        acc.zero_()
-        times.append(cuda_ms(run))
-    return float(np.median(times[1:]))
 
 
 def k1_counters(dev, meta, options, key, record, iterations: int) -> dict:
@@ -1320,10 +1508,11 @@ def options_phase(device) -> None:
         raise AssertionError(f"benchmark app printed {len(results)} entries: {results}")
 
 
-def one_train_step(cfg: TrainConfig, device, x: np.ndarray, y: np.ndarray, params: dict):
+def one_train_step(cfg: TrainConfig, device, x: np.ndarray, y: np.ndarray, params: dict,
+                   mesh=None):
     """(loss, the grads reaching Adam) of one update from ``params``."""
     opt = Optimizer(params_from_jax(params).to(device), onecycle_schedule(16, cfg.max_lr))
-    step_fn, _ = build_train_step(cfg, opt)
+    step_fn, _ = build_train_step(cfg, opt, mesh)
     loss = float(step_fn(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)))
     return loss, [p.grad for p in opt.params]
 
@@ -1502,6 +1691,277 @@ def train_steps(device, tmp: str) -> None:
           out=repr(" | ".join(proc.stdout.strip().splitlines()[-3:])))
     if proc.returncode != 0 or not os.path.isfile(cli_tza):
         raise AssertionError(f"train_denoiser failed:\n{proc.stdout}\n{proc.stderr}")
+
+
+def synced_s(fn) -> float:
+    """Wall seconds of fn(), the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def require_launches(name: str, launches: int) -> None:
+    if launches < 1:
+        raise AssertionError(f"{name} launched its kernel no time")
+
+
+def multichip_phase(device) -> None:
+    """Multi-device rendering, denoising and training over the mesh
+    MULTICHIP_DEVICES: each against its single-device counterpart."""
+    mesh = make_mesh(devices=MULTICHIP_DEVICES)
+    mega = RenderOptions(megakernel=True)
+
+    # 1. Sample mode through K1: one launch per device, one psum.
+    r = Renderer(cornell_box(resolution=(RES, RES), depth=DEPTH), mega, seed=SEED, device=device)
+    megakernel.LAUNCHES = 0
+    out = {}
+    sample_s = synced_s(lambda: out.update(rows=render_multichip_sample(
+        r.dev, r.meta, r.options, r.base_key, MULTICHIP_ITERS, mesh)))
+    launches = megakernel.LAUNCHES
+    require_launches("sample mode (K1)", launches)
+    seq_s = synced_s(lambda: r.render(MULTICHIP_ITERS))
+    img, alb, nrm = out["rows"]
+    got = torch.stack([*img, *alb, *nrm])
+    diff = (got - r.acc).abs()
+    close = bool(torch.all(diff <= MULTICHIP_TOL + MULTICHIP_TOL * r.acc.abs()))
+    phase("multichip", mode="sample", route="k1", iterations=MULTICHIP_ITERS,
+          devices=",".join(MULTICHIP_DEVICES), k1_launches=launches, max_abs=f"{diff.max():.3e}",
+          aov_equal=torch.equal(got[3:9], r.acc[3:9]), s=f"{sample_s:.4f}",
+          sequential_s=f"{seq_s:.4f}")
+    if not close:
+        raise AssertionError("sample mode disagrees with the sequential render beyond 1e-4")
+
+    # 2. Pixel mode through K1, one iteration per step, against a sequential
+    # render of one iteration per launch: bit for bit.
+    def pixel_mode(name, scene, options, iters):
+        r = Renderer(scene, options, seed=SEED, device=device)
+        step_fn, make_state = sharded_render_step(r.meta, r.options, mesh)
+        image, albedo, cache = make_state()
+        devs = replicate(r.dev, mesh)
+        state = {"s": (image, albedo, cache)}
+
+        def steps():
+            for it in range(1, iters + 1):
+                state["s"] = step_fn(devs, *state["s"], it, r.base_key)
+
+        megakernel.LAUNCHES = megakernel.BOUNCE_LAUNCHES = prng.LAUNCHES = 0
+        mh.LAUNCHES = 0
+        pixel_s = synced_s(steps)
+        counts = dict(k1_launches=megakernel.LAUNCHES, k5_launches=megakernel.BOUNCE_LAUNCHES,
+                      k6_launches=prng.LAUNCHES, mesh_launches=mh.LAUNCHES)
+        seq_s = synced_s(lambda: [r.step() for _ in range(iters)])
+        gathered = torch.cat(state["s"][0].base, dim=1)
+        equal = torch.equal(gathered, r.acc)
+        phase("multichip", mode="pixels", route=name, iterations=iters,
+              lanes_per_device=gathered.shape[1] // mesh.size, bitwise=equal,
+              max_abs=f"{(gathered - r.acc).abs().max():.3e}", s=f"{pixel_s:.4f}",
+              sequential_s=f"{seq_s:.4f}", **counts)
+        if not equal:
+            raise AssertionError(f"pixel mode ({name}) is not bitwise the single-device render")
+        return counts
+
+    counts = pixel_mode("k1", cornell_box(resolution=(RES, RES), depth=DEPTH), mega,
+                        MULTICHIP_ITERS)
+    require_launches("pixel mode (K1)", counts["k1_launches"])
+    counts = pixel_mode("k5", mesh_scene("cornellShip"),
+                        RenderOptions(megakernel=True, bounce_megakernel=True, rng="auto"),
+                        MULTICHIP_K5_ITERS)
+    require_launches("pixel mode (K5)", counts["k5_launches"])
+    counts = pixel_mode("wavefront", mesh_scene("cornellShipTex"),
+                        app_options(megakernel=False), MULTICHIP_WAVEFRONT_ITERS)
+    require_launches("pixel mode (the mesh kernel)", counts["mesh_launches"])
+
+    # 3. The Filter's mesh against the single-device execute: bit for bit.
+    fdev = Device()
+    fdev.commit()
+    g = np.random.default_rng(SEED)
+    for w, h in MULTICHIP_FILTER_SIZES:
+        images = {"color": g.random((h, w, 3), np.float32) * 4,
+                  "albedo": g.random((h, w, 3), np.float32),
+                  "normal": g.random((h, w, 3), np.float32) * 2 - 1}
+        bufs = {n: DeviceBuffer(a) for n, a in images.items()}
+        for mem in MULTICHIP_FILTER_MEMORY:
+            outs, times = [], []
+            for m in (None, mesh):
+                out = DeviceBuffer(np.zeros((h, w, 3), np.float32))
+                f = new_filter(fdev, "RT", bufs, out, hdr=True, maxMemoryMB=mem, mesh=m)
+                times.append(time_filter(f, 2))
+                outs.append(out.array)
+            equal = torch.equal(outs[0], outs[1])
+            phase("multichip", check="filter_mesh", size=f"{w}x{h}", maxMemoryMB=mem,
+                  tiles="x".join(map(str, f.tile_counts)), bitwise=equal, ms=f"{times[1]:.3f}",
+                  single_ms=f"{times[0]:.3f}")
+            if not (equal and bool(torch.isfinite(outs[1]).all())):
+                raise AssertionError(f"the Filter's mesh is not bitwise the single device at "
+                                     f"{w}x{h}, maxMemoryMB {mem}")
+
+    # 4. The trainer on the mesh: float32 steps against the single device's
+    # (the loss, and the gradients reaching Adam), then train() at
+    # TrainConfig's defaults beside the single device. On the mesh that names
+    # the card twice a replica is its master tensor, so a mesh of the card and
+    # the CPU also runs, whose replicas are copies: its gradients reach the
+    # master only through the copies' backward. The gradients' bars
+    # (MESH_GRAD_REL, TRAIN_STEP_RTOL) are per loss and mesh: "l1" on the card
+    # alone is held to the CPU tests' 1e-5; l1_msssim's float32 gradients
+    # shift with the order of their sums by more than that (its variance
+    # estimates cancel: tests/test_torch_train_mesh.py) and the card against
+    # the CPU rounds its convolutions differently, so those take the card-
+    # against-CPU bar of the loss, 1e-4. A dropped or mis-scaled shard moves
+    # the gradients by a share of themselves.
+    g = np.random.default_rng(SEED)
+    xb, yb = g.random((4, 64, 64, 6), np.float32), g.random((4, 64, 64, 3), np.float32)
+    params0 = init_params(6, SEED)
+    card_and_cpu = make_mesh(devices=(MULTICHIP_DEVICES[0], "cpu"))
+    for check, loss, m, grad_rel in (
+            ("train_step_float32", "l1_msssim", mesh, TRAIN_STEP_RTOL),
+            ("train_step_float32_l1", "l1", mesh, MESH_GRAD_REL),
+            ("train_step_float32_card_and_cpu", "l1", card_and_cpu, TRAIN_STEP_RTOL)):
+        cfg32 = TrainConfig(precision="float32", batch_size=4, tile_size=64, loss=loss)
+        single_loss, single_grads = one_train_step(cfg32, device, xb, yb, params0)
+        mesh_loss_, mesh_grads = one_train_step(cfg32, device, xb, yb, params0, mesh=m)
+        rel = abs(mesh_loss_ - single_loss) / abs(single_loss)
+        scale = max(float(gr.abs().max()) for gr in single_grads)
+        grad_diff = max(float((a - b).abs().max()) for a, b in zip(mesh_grads, single_grads))
+        phase("multichip", check=check, loss_fn=loss, devices=",".join(map(str, m.devices)),
+              loss_mesh=f"{mesh_loss_:.7f}", loss_single=f"{single_loss:.7f}", rel=f"{rel:.2e}",
+              grad_max_abs_diff=f"{grad_diff:.3e}", of_largest_grad=f"{grad_diff / scale:.2e}",
+              grad_bar=grad_rel)
+        if not (rel < TRAIN_STEP_RTOL and grad_diff <= grad_rel * scale
+                and all(gr.device.type == "cuda" for gr in mesh_grads)):
+            raise AssertionError(f"the trainer's mesh step ({check}) disagrees with the single "
+                                 "device's")
+    data_dir = os.path.join(HERE, "data", "denoise")
+    with tempfile.TemporaryDirectory() as tmp:
+        per_step = {}
+        for label, m in (("single", None), ("mesh", mesh)):
+            rec = []
+            train(TrainConfig(data_dir=data_dir, result_dir=os.path.join(tmp, label),
+                              num_epochs=1, steps_per_epoch=MULTICHIP_TRAIN_STEPS),
+                  mesh=m, log_fn=rec.append, device=device)
+            per_step[label] = (1e3 * TrainConfig().batch_size / rec[0]["images_per_sec"],
+                               rec[0]["loss"])
+        phase("multichip", check="train", steps=MULTICHIP_TRAIN_STEPS,
+              batch=TrainConfig().batch_size, tile=TrainConfig().tile_size,
+              precision=TrainConfig().precision, ms_per_step=f"{per_step['mesh'][0]:.3f}",
+              single_ms_per_step=f"{per_step['single'][0]:.3f}",
+              loss=f"{per_step['mesh'][1]:.6f}", single_loss=f"{per_step['single'][1]:.6f}")
+        if not np.isfinite(per_step["mesh"][1]):
+            raise AssertionError("train() on the mesh gave a non-finite loss")
+
+    # 5. The app's --multichip: one card visible, so the sequential path.
+    for mode in ("sample", "pixels"):
+        with tempfile.TemporaryDirectory() as out_dir:
+            proc = subprocess.run(
+                [sys.executable, "-m", "mygpuraytracer_tpu_torch.apps.raytrace", "cornell",
+                 "--resolution", str(RES), str(RES), "--iterations", str(MULTICHIP_APP_ITERS),
+                 "--depth", str(DEPTH), "--no-denoise", "--multichip", mode,
+                 "--out-dir", out_dir], capture_output=True, text=True, timeout=600, cwd=HERE)
+            sequential = "multichip: single device visible; using the sequential path" in \
+                proc.stdout
+            phase("multichip", check="app", flag=mode, rc=proc.returncode,
+                  pngs=len(os.listdir(out_dir)), sequential_logged=sequential)
+            if proc.returncode != 0 or not sequential or len(os.listdir(out_dir)) != 3:
+                raise AssertionError(f"the app's --multichip {mode} did not log the sequential "
+                                     f"path and write its PNGs:\n{proc.stdout}\n{proc.stderr}")
+
+
+def preview_phase(device) -> None:
+    """The preview app's session on the card: frames over localhost, a
+    camera move (a reset that restarts the accumulation) and a save with
+    the denoise."""
+    import http.client
+
+    from mygpuraytracer_tpu_torch.utils.png import decode_png
+
+    session = PreviewSession(cornell_box(resolution=(RES, RES), depth=DEPTH),
+                             RenderOptions(megakernel=True), iterations=PREVIEW_ITERS,
+                             batch=PREVIEW_BATCH, seed=SEED, device=device)
+    server = make_server(session, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    conn = http.client.HTTPConnection(*server.server_address, timeout=60)
+
+    def get(path, body=None):
+        conn.request("GET" if body is None else "POST", path,
+                     None if body is None else json.dumps(body))
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+
+    def state():
+        return json.loads(get("/state")[1])
+
+    def wait(pred, what):
+        t = time.perf_counter()
+        while not pred(state()):
+            if time.perf_counter() - t > 120 or not session.thread.is_alive():
+                raise AssertionError(f"preview: {what} did not happen (render thread "
+                                     f"{'alive' if session.thread.is_alive() else 'dead'})")
+            time.sleep(0.01)
+
+    try:
+        megakernel.LAUNCHES = 0
+        t = time.perf_counter()
+        session.start()
+        wait(lambda s: s["done"] and s["iteration"] == PREVIEW_ITERS, "the first accumulation")
+        first_s = time.perf_counter() - t
+        first_launches = megakernel.LAUNCHES
+        frames = 0
+        for _ in range(3):
+            status, png = get("/frame.png")
+            frames += status == 200 and decode_png(png).shape == (RES, RES, 3)
+        get("/camera", {"orbit": [40, -10]})
+        wait(lambda s: s["resets"] == 1 and s["done"] and s["iteration"] == PREVIEW_ITERS,
+             "the accumulation after the camera move")
+        launches = megakernel.LAUNCHES
+        with tempfile.TemporaryDirectory() as out_dir:
+            session.out_dir = out_dir
+            status, body = get("/save", {"denoise": True})
+            saved = json.loads(body)["saved"]
+            pngs = [p for p in saved if os.path.isfile(p)]
+        st = state()
+        phase("preview", scene="cornell", size=f"{RES}x{RES}", iterations=PREVIEW_ITERS,
+              batch=PREVIEW_BATCH, frames=frames, resets=st["resets"], k1_launches=launches,
+              k1_launches_before_move=first_launches, first_accumulation_s=f"{first_s:.3f}",
+              fps=st["fps"], saved=len(pngs))
+        require_launches("the preview session (K1)", launches)
+        # The move restarted the accumulation from iteration 0: as many
+        # launches after it as before.
+        if frames != 3 or st["resets"] != 1 or launches != 2 * first_launches or len(pngs) != 3:
+            raise AssertionError(f"preview: frames {frames}, resets {st['resets']}, K1 launches "
+                                 f"{first_launches} then {launches}, saved {saved}")
+    finally:
+        conn.close()
+        server.shutdown()
+        server.server_close()
+        session.stop()
+
+
+def bench_phase() -> None:
+    """``python -m mygpuraytracer_tpu_torch.bench`` in a subprocess: its
+    last JSON line holds every key of the repo's bench.py, its Msamples/s
+    and ms values non-null."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(HERE, "bench.py")).read())
+    keys = next([k.value for k in node.value.keys] for node in ast.walk(tree)
+                if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(isinstance(t, ast.Name) and t.id == "result" for t in node.targets))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mygpuraytracer_tpu_torch.bench"],
+                          capture_output=True, text=True, timeout=900, cwd=HERE)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    last = json.loads(lines[-1]) if lines else {}
+    print("    bench:", lines[-1] if lines else "(no JSON line)", flush=True)
+    timed = [k for k in keys if k.endswith(("msamples_per_sec", "_ms", "ms_per_frame"))]
+    missing = [k for k in keys if k not in last]
+    null = [k for k in timed + ["value"] if last.get(k) is None]
+    phase("bench", rc=proc.returncode, s=f"{time.perf_counter() - t:.1f}", lines=len(lines),
+          keys=len(last), missing=",".join(missing) or "none", null=",".join(null) or "none")
+    if proc.returncode != 0 or missing or null:
+        raise AssertionError(f"the port's bench failed or left keys out or null:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
 
 
 def main() -> int:
@@ -1866,7 +2326,7 @@ def main() -> int:
             pieces = {"torch_rand": rand, "k6_wrapper": run_k6,
                       "torch_empty": lambda: torch.empty((k, n), dtype=torch.float32, device=device),
                       "stream_handle": lambda: _build.stream_handle(buf.device),
-                      "c_launch": lambda: k6_c(PRNG_SEEDS[1], buf.data_ptr(), k, n, handle)}
+                      "c_launch": lambda: k6_c(PRNG_SEEDS[1], buf.data_ptr(), k, n, 0, handle)}
             host = {name: [] for name in pieces}
             for _ in range(2):
                 for name, fn in pieces.items():
@@ -2128,6 +2588,11 @@ def main() -> int:
     # ---- train: the denoiser's training toolkit on the card --------------------------
     train_phase(device)
 
+    # ---- multichip, preview, bench ----------------------------------------------------
+    multichip_phase(device)
+    preview_phase(device)
+    bench_phase()
+
     kernels = [{
         "name": "k1_megakernel",
         "route": "cuda",
@@ -2141,7 +2606,8 @@ def main() -> int:
         "bound_by": k1["cornell"]["bound_by"],
         "library_ms": None,
         "design": "redesigned: persistent lanes with a warp-aggregated pixel queue, a new path "
-                  "as soon as one ends, the scene record in shared memory",
+                  "as soon as one ends, the scene record in shared memory; a pixel range per "
+                  "launch (the pixel-sharded render); times of whole-image launches",
     }]
     for tier, kname, line in (("rows", "k2_mesh_rows", 1109), ("lists", "k3_mesh_lists", 967),
                               ("conds", "k4_mesh_conds", 427)):
@@ -2172,6 +2638,8 @@ def main() -> int:
         "bound_ms": k5_bound_ms,
         "bound_by": k5_bound_by,
         "library_ms": None,
+        "design": "per-ray cluster-tree walk, warp-tested leaves; a pixel range per launch (the "
+                  "pixel-sharded render); times of whole-image launches",
     })
     kernels.append({
         "name": "k6_uniforms",
@@ -2190,4 +2658,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_main(sys.argv[2:]) if sys.argv[1:2] == ["--ab"] else main())

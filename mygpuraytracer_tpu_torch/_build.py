@@ -13,6 +13,7 @@ libraries' paths.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,15 +39,16 @@ _F = ctypes.c_float
 # C signature of every exported function: (restype, argtypes).
 SIGNATURES = {
     # csrc/megakernel.cu
-    "k1_accumulate": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I, _F, _F,
-                           _I, _I, _P]),
+    "k1_accumulate": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I,
+                           _F, _F, _I, _I, _P]),
     "k1_blocks_per_sm": (_I, [_I, _I, _I, _I]),
     # csrc/mesh_hit.cu
     "mesh_hit": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # csrc/prng.cu
-    "k6_uniforms": (_I, [_I, _P, _I, _I, _P]),
+    "k6_uniforms": (_I, [_I, _P, _I, _I, _I, _P]),
     # csrc/bounce.cu
-    "k5_bounce": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _I, _I, _P]),
+    "k5_bounce": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I, _I,
+                       _P]),
 }
 
 _lib = None
@@ -110,6 +112,19 @@ def build() -> list[str]:
         raise RuntimeError("\n".join(failed))
     build_seconds = time.perf_counter() - t0
     return outs
+
+
+def device_guard(device):
+    """A context that makes ``device`` (a CUDA tensor's) current for a
+    launch, whose C side launches on the current device, so a mesh of cards
+    launches each kernel on its own card; nothing when it is current
+    already (torch.cuda.device's switch and restore cost host time per
+    launch)."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def stream_handle(device) -> int:

@@ -20,6 +20,10 @@ kernel on CUDA; larger meshes, textured and bump-mapped ones included
 kernel (``--mesh-tier``, ``--mesh-sort``, ``--winner-table``), as do
 ``--sort-by-material`` runs under ``--megakernel auto``: the material sort
 exists only on the wavefront. The beauty is denoised through the Filter API on the same device (``denoise_beauty``).
+``--multichip sample|pixels`` renders over a mesh of every visible CUDA
+device (parallel/sharded.py): MC iterations split over the devices with one
+psum, or the pixels sharded; with one device visible it logs so and renders
+sequentially, as the JAX app does.
 """
 
 from __future__ import annotations
@@ -30,6 +34,9 @@ import sys
 import time
 
 import numpy as np
+
+from ..parallel.mesh import make_mesh
+from ..utils.platform import add_device_flag, resolve_device
 
 
 def parse_args(argv=None):
@@ -70,7 +77,12 @@ def parse_args(argv=None):
                    help="the sorted bounce's form (render/pathtrace.py _sort_wavefront): "
                         "'fused' = one sort and one gather of the per-lane arrays; "
                         "'perm' (counting sort) and 'argsort' gather every field")
-    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--multichip", choices=("off", "sample", "pixels"), default="off",
+                   help="render over every visible CUDA device: 'sample' splits the MC "
+                        "iterations across the mesh (one psum merge), 'pixels' shards the "
+                        "accumulators and the wavefront (device memory N/devices); both match "
+                        "the single-device image")
+    add_device_flag(p)
     p.add_argument("--quiet", action="store_true")
     return p.parse_args(argv)
 
@@ -118,15 +130,54 @@ def denoise_beauty(beauty: np.ndarray, albedo: np.ndarray, device="cuda"):
     return output, timings
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
+def _render_multichip(r, options, iterations, mode, log) -> int:
+    """Render on a mesh over every visible device into ``r``'s accumulator;
+    returns the iterations done (a remainder that does not divide the mesh
+    falls through to the sequential loop)."""
     import torch
 
+    from ..parallel.mesh import replicate
+    from ..parallel.sharded import render_multichip_sample, sharded_render_step
+
+    mesh = make_mesh() if r.device.type == "cuda" else make_mesh(devices=(r.device,))
+    n_dev = mesh.size
+    if n_dev < 2:
+        log("multichip: single device visible; using the sequential path")
+        return 0
+    if mode == "sample":
+        spp = (iterations // n_dev) * n_dev
+        if spp == 0:
+            return 0
+        img, alb, nrm = render_multichip_sample(r.dev, r.meta, options, r.base_key, spp, mesh)
+        r.acc = torch.stack([*img, *alb, *nrm]).to(r.device)
+        r.iteration = spp
+        log(f"multichip sample-parallel: {spp} iterations over {n_dev} devices")
+        return spp
+    # pixels: shard the accumulators and the wavefront; run every iteration here
+    w, h = r.meta.resolution
+    if (w * h) % n_dev:
+        log(f"multichip pixels: {w}x{h} does not divide {n_dev} devices; "
+            "using the sequential path")
+        return 0
+    step_fn, make_state = sharded_render_step(r.meta, options, mesh)
+    image, albedo, cache = make_state()
+    devs = replicate(r.dev, mesh)
+    for it in range(1, iterations + 1):
+        image, albedo, cache = step_fn(devs, image, albedo, cache, it, r.base_key)
+    r.acc = torch.cat([acc.to(r.device) for acc in image.base], dim=1)
+    r.iteration = iterations
+    log(f"multichip pixel-sharded: {iterations} iterations, "
+        f"{w * h // n_dev} lanes/device over {n_dev} devices")
+    return iterations
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     from ..config import RenderOptions
     from ..render import Renderer
     from ..utils.png import write_png
 
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     scene = load_any_scene(args.scene)
     if args.resolution:
         scene.set_resolution(*args.resolution)
@@ -159,6 +210,10 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     done = 0
+    if args.multichip != "off":
+        # r.options, not the local options: the Renderer resolved the auto
+        # knobs (winner_table, mesh_sort) from its device.
+        done = _render_multichip(r, r.options, iterations, args.multichip, log)
     while done < iterations:
         n = min(args.batch, iterations - done)
         r.step_many(n)

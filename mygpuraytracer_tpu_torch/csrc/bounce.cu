@@ -9,13 +9,18 @@
 // (path.cuh::shade, render/shade.py), and color * pi added into the
 // accumulator; the first-hit albedo and normal are written at iteration 1.
 //
-// Inputs: rays [6, n] (origin xyz, direction xyz), the scene record
+// A launch covers the pixel range p0 .. p0 + count - 1 of the n-pixel image
+// (the whole image: p0 = 0, count = n): rays, acc and visits hold the range's
+// count columns, and the image's pixel p0 + p is the RNG counter, so ranges
+// that tile the image give the whole launch's sums bit for bit.
+//
+// Inputs: rays [6, count] (origin xyz, direction xyz), the scene record
 // (render/megakernel.py::scene_record: camera, geoms with their materials;
 // its listed faces are not read), face_gather [C, 4, 128, 4] (rows 0-12 of
 // face_plane, four rows to a float4, 128 faces to a block) and cluster_tree
 // [C - 1, 16]
 // (scene/device_scene.py::build_cluster_tree). Output: rows 0-8 of acc
-// [9, n]; if given, visits [n] gains the clusters each ray tested over the
+// [9, count]; if given, visits [count] gains the clusters each ray tested over the
 // launch's bounces, and stats [4] the launch's tree nodes visited (interior
 // nodes whose two child boxes a ray tested), warp traversal iterations (one
 // iteration: the lanes still walking each visit one node), warp bounce
@@ -86,25 +91,31 @@ struct Draws {
   }
 };
 
-template <bool COUNT>
+template <bool COUNT, bool RANGE>
 __global__ void __launch_bounds__(THREADS)
     k5_kernel(const float* __restrict__ rays, const float* __restrict__ rec,
               const float4* __restrict__ faces, const float4* __restrict__ tree,
               float* __restrict__ acc, int* __restrict__ visits,
-              unsigned long long* __restrict__ stats, int n, int depth, int iteration,
-              int counter, uint32_t key0, uint32_t key1, int32_t seed) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+              unsigned long long* __restrict__ stats, int n, int p0, int pixels, int depth,
+              int iteration, int counter, uint32_t key0, uint32_t key1, int32_t seed) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;  // in the range
   const int lane = static_cast<int>(threadIdx.x) % WARP;
-  const bool in_image = p < n;  // threads past n take part in the warp's steps
+  // The range's length: the rows' stride. RANGE false is the whole image
+  // (p0 = 0, pixels = n), compiled without the range's add and stride, which
+  // cost a whole-image launch 0.4% (NVIDIA H100 80GB HBM3, 700 W;
+  // chip_smoke.py --ab).
+  const int len = RANGE ? pixels : n;
+  const bool in_image = p < len;  // threads past the range take part in the warp's steps
+  const int g = RANGE ? p0 + p : p;  // the image's pixel: the RNG counter
   const RecScene scene{rec, static_cast<int>(rec[0]), 0};  // the geoms; no listed faces
-  Draws rng{{key0, key1, static_cast<uint64_t>(n), static_cast<uint64_t>(p)},
-            stream_word(seed, static_cast<uint32_t>(p)), static_cast<uint32_t>(p),
+  Draws rng{{key0, key1, static_cast<uint64_t>(n), static_cast<uint64_t>(g)},
+            stream_word(seed, static_cast<uint32_t>(g)), static_cast<uint32_t>(g),
             counter != 0, -1, {0u, 0u, 0u, 0u}};
 
   Path s{{0.0f, 0.0f, 0.0f}, {1.0f, 0.0f, 0.0f}, {1.0f, 1.0f, 1.0f}, in_image ? depth : 0};
   if (in_image) {
-    s.o = {rays[p], rays[n + p], rays[2 * n + p]};
-    s.d = {rays[3 * n + p], rays[4 * n + p], rays[5 * n + p]};
+    s.o = {rays[p], rays[len + p], rays[2 * len + p]};
+    s.d = {rays[3 * len + p], rays[4 * len + p], rays[5 * len + p]};
   }
   WalkCount count{0u, 0u, 0u, 0u};
   unsigned rounds = 0, ended = 0;
@@ -138,12 +149,12 @@ __global__ void __launch_bounds__(THREADS)
                                              : load3(mat);
         nrm = h.n;
       }
-      acc[3 * n + p] = alb.x;
-      acc[4 * n + p] = alb.y;
-      acc[5 * n + p] = alb.z;
-      acc[6 * n + p] = nrm.x;
-      acc[7 * n + p] = nrm.y;
-      acc[8 * n + p] = nrm.z;
+      acc[3 * len + p] = alb.x;
+      acc[4 * len + p] = alb.y;
+      acc[5 * len + p] = alb.z;
+      acc[6 * len + p] = nrm.x;
+      acc[7 * len + p] = nrm.y;
+      acc[8 * len + p] = nrm.z;
     }
     if (alive) {
       const float u_choice = rng.uniform(4 + 3 * b);
@@ -165,8 +176,8 @@ __global__ void __launch_bounds__(THREADS)
   if (!in_image) return;
   // color * pi, then accumulate (two roundings, like the plain version)
   acc[p] = acc[p] + __fmul_rn(s.c.x, PI_F);
-  acc[n + p] = acc[n + p] + __fmul_rn(s.c.y, PI_F);
-  acc[2 * n + p] = acc[2 * n + p] + __fmul_rn(s.c.z, PI_F);
+  acc[len + p] = acc[len + p] + __fmul_rn(s.c.y, PI_F);
+  acc[2 * len + p] = acc[2 * len + p] + __fmul_rn(s.c.z, PI_F);
   if (COUNT && visits != nullptr) visits[p] += static_cast<int>(count.visits);
 }
 
@@ -174,18 +185,21 @@ __global__ void __launch_bounds__(THREADS)
 
 extern "C" int k5_bounce(const float* rays, const float* rec, const float* face_gather,
                          const float* tree, float* acc, int* visits, unsigned long long* stats,
-                         int n, int depth, int iteration, int counter, uint32_t key0,
-                         uint32_t key1, int seed, int num_clusters, int tree_depth,
-                         void* stream) {
-  if (n <= 0) return 0;
-  if (num_clusters < 2 || tree_depth < 1 || tree_depth > MAX_STACK) {
+                         int n, int p0, int count, int depth, int iteration, int counter,
+                         uint32_t key0, uint32_t key1, int seed, int num_clusters,
+                         int tree_depth, void* stream) {
+  if (count <= 0) return 0;
+  if (num_clusters < 2 || tree_depth < 1 || tree_depth > MAX_STACK || p0 < 0 ||
+      p0 > n - count) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (n + THREADS - 1) / THREADS;
-  auto kernel = (visits != nullptr || stats != nullptr) ? k5_kernel<true> : k5_kernel<false>;
+  const int blocks = (count + THREADS - 1) / THREADS;
+  const bool counting = visits != nullptr || stats != nullptr, range = p0 != 0 || count != n;
+  auto kernel = counting ? (range ? k5_kernel<true, true> : k5_kernel<true, false>)
+                         : (range ? k5_kernel<false, true> : k5_kernel<false, false>);
   kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       rays, rec, reinterpret_cast<const float4*>(face_gather),
-      reinterpret_cast<const float4*>(tree), acc, visits, stats, n, depth, iteration, counter,
-      key0, key1, seed);
+      reinterpret_cast<const float4*>(tree), acc, visits, stats, n, p0, count, depth, iteration,
+      counter, key0, key1, seed);
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,6 +47,13 @@
 // RenderOptions.rng says, as the TPU's K1 drew its hardware PRNG whatever it
 // said; K5 (bounce.cu) is the kernel that follows rng.
 //
+// A launch covers the pixel range p0 .. p0 + count - 1 of the n-pixel image
+// (the whole image: p0 = 0, count = n). The queue hands out 0 .. count - 1:
+// the local pixel p indexes the accumulator [9, count], and the image's pixel
+// p0 + p drives raygen and the RNG counters, so launches over ranges that
+// tile the image give the whole launch's sums bit for bit (the pixel-sharded
+// render, parallel/sharded.py).
+//
 // Bound on an H100: FP32 and integer instructions per ray-bounce and per
 // sample (up to 4 + 3*depth threefry draws a sample, one slab or quadric
 // test per geom and one Moller-Trumbore test per listed face a bounce);
@@ -159,11 +166,12 @@ struct SharedScene {
   }
 };
 
-template <bool COUNT>
+template <bool COUNT, bool RANGE>
 __global__ void __launch_bounds__(MAX_THREADS)
     k1_kernel(const float* __restrict__ rec, float* __restrict__ acc, int* __restrict__ queue,
               unsigned long long* __restrict__ stats, int num_geoms, int num_faces, int n,
-              int width, int height, int depth, int start_iter, int num_iters, uint32_t key0,
+              int p0, int count, int width, int height, int depth, int start_iter, int num_iters,
+              uint32_t key0,
               uint32_t key1, int aa, int dof, float lens_radius, float focal_distance) {
   extern __shared__ float4 shared_rec[];
   float* const sh = reinterpret_cast<float*>(shared_rec);
@@ -175,14 +183,19 @@ __global__ void __launch_bounds__(MAX_THREADS)
   __syncthreads();
   const SharedScene scene{shared_rec, num_geoms, num_faces};
   const unsigned lane = threadIdx.x % WARP;
+  // The range's length: the queue's end and the accumulator's row stride.
+  // RANGE false is the whole image (p0 = 0, count = n), compiled without the
+  // range's add and stride, which cost a whole-image launch 0.5% back to back
+  // (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py --ab).
+  const int len = RANGE ? count : n;
 
-  int p = -1;         // the pixel this lane holds (-1: none)
+  int p = -1;         // the pixel this lane holds, in the range (-1: none)
   int i = 0;          // its iteration, start_iter + i
   bool dry = false;   // this lane found the queue empty
   uint32_t ik0 = 0u, ik1 = 0u;  // fold_in(key, start_iter + i)
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   Path s{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 1.0f}, {0.0f, 0.0f, 0.0f}, 0};
-  unsigned long long count[NUM_STATS] = {};  // COUNT: the warp's counters, on every lane
+  unsigned long long stat[NUM_STATS] = {};  // COUNT: the warp's counters, on every lane
   bool warp_dry = false;                     // COUNT: a lane of the warp found the queue empty
 
   for (;;) {
@@ -194,8 +207,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
       acc_b = acc_b + __fmul_rn(s.c.z, PI_F);
       if (++i == num_iters) {
         acc[p] = acc_r;
-        acc[n + p] = acc_g;
-        acc[2 * n + p] = acc_b;
+        acc[len + p] = acc_g;
+        acc[2 * len + p] = acc_b;
         p = -1;
       }
     }
@@ -209,47 +222,48 @@ __global__ void __launch_bounds__(MAX_THREADS)
       base = __shfl_sync(FULL, base, leader);
       if (want) {
         const int q = base + __popc(wanting & ((1u << lane) - 1u));
-        if (q < n) {
+        if (q < len) {
           p = q;
           i = 0;
           acc_r = acc[p];
-          acc_g = acc[n + p];
-          acc_b = acc[2 * n + p];
+          acc_g = acc[len + p];
+          acc_b = acc[2 * len + p];
         } else {
           dry = true;
         }
       }
       if (COUNT) {
-        count[ATOMICS] += 1;
-        const int got = n - base < asked ? n - base : asked;
-        count[FETCHES] += got > 0 ? got : 0;
-        warp_dry = warp_dry || base + asked > n;
+        stat[ATOMICS] += 1;
+        const int got = len - base < asked ? len - base : asked;
+        stat[FETCHES] += got > 0 ? got : 0;
+        warp_dry = warp_dry || base + asked > len;
       }
     }
     const unsigned holding = __ballot_sync(FULL, p >= 0);
     if (holding == 0) break;  // every lane of the warp found the queue empty
     const bool starts = ended && p >= 0;
     if (COUNT) {
-      count[ROUNDS] += 1;
-      count[LIVE] += __popc(holding);
+      stat[ROUNDS] += 1;
+      stat[LIVE] += __popc(holding);
       const unsigned starting = __ballot_sync(FULL, starts);
-      count[RAYGENS] += __popc(starting);
-      count[RAYGEN_ROUNDS] += starting != 0 ? 1 : 0;
-      count[TAIL] += warp_dry ? 1 : 0;
+      stat[RAYGENS] += __popc(starting);
+      stat[RAYGEN_ROUNDS] += starting != 0 ? 1 : 0;
+      stat[TAIL] += warp_dry ? 1 : 0;
     }
     if (p < 0) continue;
+    const int g = RANGE ? p0 + p : p;  // the image's pixel: raygen and the RNG counters
     const int iteration = start_iter + i;
     if (starts) {  // raygen (render/camera.py)
       ik0 = 0u;
       ik1 = static_cast<uint32_t>(iteration);  // fold_in(key, iteration)
       threefry2x32(key0, key1, ik0, ik1);
-      const Stream r{ik0, ik1, static_cast<uint64_t>(n), static_cast<uint64_t>(p)};
+      const Stream r{ik0, ik1, static_cast<uint64_t>(n), static_cast<uint64_t>(g)};
       const float4 c0 = shared_rec[0], c1 = shared_rec[1], c2 = shared_rec[2],
                    c3 = shared_rec[3];
       const V3 cam_pos = {c0.x, c0.y, c0.z}, view = {c1.x, c1.y, c1.z}, up = {c2.x, c2.y, c2.z},
                right = {c3.x, c3.y, c3.z};
-      float x = static_cast<float>(p % width);
-      float y = static_cast<float>(p / width);
+      float x = static_cast<float>(g % width);
+      float y = static_cast<float>(g / width);
       if (aa) {
         x = x + (r.uniform(0) - 0.5f);
         y = y + (r.uniform(1) - 0.5f);
@@ -291,19 +305,19 @@ __global__ void __launch_bounds__(MAX_THREADS)
                                              : m.color;
         nrm = h.n;
       }
-      acc[3 * n + p] = alb.x;
-      acc[4 * n + p] = alb.y;
-      acc[5 * n + p] = alb.z;
-      acc[6 * n + p] = nrm.x;
-      acc[7 * n + p] = nrm.y;
-      acc[8 * n + p] = nrm.z;
+      acc[3 * len + p] = alb.x;
+      acc[4 * len + p] = alb.y;
+      acc[5 * len + p] = alb.z;
+      acc[6 * len + p] = nrm.x;
+      acc[7 * len + p] = nrm.y;
+      acc[8 * len + p] = nrm.z;
     }
-    const Stream draws{ik0, ik1, static_cast<uint64_t>(n), static_cast<uint64_t>(p)};
+    const Stream draws{ik0, ik1, static_cast<uint64_t>(n), static_cast<uint64_t>(g)};
     shade(s, h, scene, draws.uniform(4 + 3 * b), draws.uniform(5 + 3 * b),
           draws.uniform(6 + 3 * b));
   }
   if (COUNT && lane == 0) {
-    for (int c = 0; c < NUM_STATS; ++c) atomicAdd(stats + c, count[c]);
+    for (int c = 0; c < NUM_STATS; ++c) atomicAdd(stats + c, stat[c]);
   }
 }
 
@@ -311,7 +325,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
 // threads one SM holds with `smem` bytes of shared memory (above 48 KB the
 // kernel is allowed them first).
 using K1Kernel = void (*)(const float*, float*, int*, unsigned long long*, int, int, int, int,
-                          int, int, int, int, uint32_t, uint32_t, int, int, float, float);
+                          int, int, int, int, int, int, uint32_t, uint32_t, int, int, float,
+                          float);
 
 cudaError_t resident_blocks(K1Kernel kernel, int threads, size_t smem, int* per_sm) {
   cudaError_t err = cudaSuccess;
@@ -334,25 +349,28 @@ cudaError_t resident_blocks(K1Kernel kernel, int threads, size_t smem, int* per_
 extern "C" int k1_blocks_per_sm(int threads, int num_geoms, int num_faces, int counting) {
   int per_sm = 0;
   const cudaError_t err =
-      resident_blocks(counting ? k1_kernel<true> : k1_kernel<false>, threads,
+      resident_blocks(counting ? k1_kernel<true, false> : k1_kernel<false, false>, threads,
                       sizeof(float) * shared_floats(num_geoms, num_faces), &per_sm);
   return err == cudaSuccess ? per_sm : -static_cast<int>(err);
 }
 
 extern "C" int k1_accumulate(const float* rec, float* acc, int* queue, unsigned long long* stats,
-                             int num_geoms, int num_faces, int n, int width, int height,
-                             int depth, int start_iter, int num_iters, uint32_t key0,
+                             int num_geoms, int num_faces, int n, int p0, int count,
+                             int width, int height, int depth, int start_iter, int num_iters,
+                             uint32_t key0,
                              uint32_t key1, int aa, int dof, float lens_radius,
                              float focal_distance, int threads, int blocks_per_sm,
                              void* stream) {
-  if (n <= 0 || num_iters <= 0) return 0;
+  if (count <= 0 || num_iters <= 0) return 0;
   if (threads <= 0) threads = THREADS;
   if (threads % WARP != 0 || threads > MAX_THREADS || num_geoms < 0 || num_faces < 0 ||
-      depth < 1) {
+      depth < 1 || p0 < 0 || p0 > n - count) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const K1Kernel kernel = stats != nullptr ? k1_kernel<true> : k1_kernel<false>;
+  const bool range = p0 != 0 || count != n;
+  const K1Kernel kernel = stats != nullptr ? (range ? k1_kernel<true, true> : k1_kernel<true, false>)
+                                           : (range ? k1_kernel<false, true> : k1_kernel<false, false>);
   const size_t smem = sizeof(float) * shared_floats(num_geoms, num_faces);
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -361,10 +379,10 @@ extern "C" int k1_accumulate(const float* rec, float* acc, int* queue, unsigned 
   if (err == cudaSuccess) err = cudaMemsetAsync(queue, 0, sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int resident = blocks_per_sm > 0 && blocks_per_sm < per_sm ? blocks_per_sm : per_sm;
-  const int needed = (n + threads - 1) / threads;
+  const int needed = (count + threads - 1) / threads;
   const int blocks = sms * resident < needed ? sms * resident : needed;
-  kernel<<<blocks, threads, smem, st>>>(rec, acc, queue, stats, num_geoms, num_faces, n, width,
-                                        height, depth, start_iter, num_iters, key0, key1, aa, dof,
-                                        lens_radius, focal_distance);
+  kernel<<<blocks, threads, smem, st>>>(rec, acc, queue, stats, num_geoms, num_faces, n, p0,
+                                        count, width, height, depth, start_iter, num_iters, key0,
+                                        key1, aa, dof, lens_radius, focal_distance);
   return static_cast<int>(cudaGetLastError());
 }

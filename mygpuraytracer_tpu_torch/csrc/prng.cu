@@ -12,6 +12,10 @@
 // (bounce.cu) draws the same numbers in-kernel at any (row, pixel) without
 // this block.
 //
+// A launch writes the columns col0 .. col0 + n - 1 of the stream (out is
+// [k, n]): the column range of a pixel-sharded render (parallel/sharded.py);
+// the whole block is col0 = 0.
+//
 // Design: one thread per (column, group of 4 rows): one Philox call gives
 // the group's four rows, written with four stores that each cover 128
 // contiguous bytes across the warp; rows past k are masked. Grid: columns
@@ -37,13 +41,14 @@ constexpr int THREADS = 256;
 constexpr int MAX_GRID_Y = 65535;
 
 __global__ void __launch_bounds__(THREADS)
-    k6_kernel(int32_t seed, float* __restrict__ out, int k, int n) {
+    k6_kernel(int32_t seed, float* __restrict__ out, int k, int n, int col0) {
   const int col = blockIdx.x * THREADS + threadIdx.x;
   if (col >= n) return;
-  const uint32_t word = stream_word(seed, static_cast<uint32_t>(col));
+  const uint32_t c = static_cast<uint32_t>(col0 + col);  // the stream's column
+  const uint32_t word = stream_word(seed, c);
   const int groups = (k + 3) / 4;
   for (int g = blockIdx.y; g < groups; g += gridDim.y) {
-    const Words4 w = counter_group(word, static_cast<uint32_t>(g), static_cast<uint32_t>(col));
+    const Words4 w = counter_group(word, static_cast<uint32_t>(g), c);
     float* o = out + static_cast<int64_t>(4 * g) * n + col;
     const int rows = k - 4 * g;
     o[0] = word_uniform(w.x);
@@ -55,10 +60,11 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-extern "C" int k6_uniforms(int seed, float* out, int k, int n, void* stream) {
+extern "C" int k6_uniforms(int seed, float* out, int k, int n, int col0, void* stream) {
   if (k <= 0 || n <= 0) return 0;
+  if (col0 < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (k + 3) / 4;
   const dim3 grid((n + THREADS - 1) / THREADS, groups < MAX_GRID_Y ? groups : MAX_GRID_Y);
-  k6_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(seed, out, k, n);
+  k6_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(seed, out, k, n, col0);
   return static_cast<int>(cudaGetLastError());
 }

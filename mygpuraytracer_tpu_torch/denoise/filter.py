@@ -17,16 +17,26 @@ with no host synchronisation between tiles and one copy back (none for a
 DeviceBuffer output); with one, it runs tile by tile through the host. The
 convolutions are cuDNN's (denoise/unet.py), in bfloat16 on CUDA and float32
 on the CPU.
+
+The ``"mesh"`` parameter (a ``parallel.mesh.Mesh``) shards the single
+pass's tile table over the mesh's devices, as the JAX package's does: each
+device runs its share of the tiles through its own copy of the U-Net into a
+private canvas, and the canvases are summed onto the filter's device. Every
+pixel has exactly one writer, so the output equals the single-device
+execute bit for bit. As in JAX, a single-tile image and the monitored path
+run on the filter's device alone.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh, sum_onto
 from . import color as color_mod
 from . import weights as weights_mod
 from .unet import UNET_ALIGNMENT, UNET_RECEPTIVE_FIELD, UNet, net_dtype, no_tf32, round_up
@@ -296,8 +306,9 @@ class Filter:
             "cleanAux": False,
             "maxMemoryMB": DEFAULT_MAX_MEMORY_MB,
             "inputScale": math.nan,
-            # Sharding the tile table across devices (the JAX package's
-            # multi-chip execute): only None, one device, for now.
+            # A parallel.mesh.Mesh shards the single pass's tile table over
+            # its devices (each denoises its share into a private canvas;
+            # one sum stitches the disjoint owned regions). None: one device.
             "mesh": None,
         }
         self.progress_fn: Callable[[float], bool] | None = None
@@ -309,6 +320,7 @@ class Filter:
         self._weights_key = None  # what _tensors were loaded from
         self._tensors = None
         self._net: UNet | None = None  # _tensors on the device, in _net.dtype
+        self._mesh_nets: dict[torch.device, UNet] = {}  # copies on the mesh's other devices
 
     # -- parameter surface (oidn.hpp FilterRef) -------------------------------
     def set_image(self, name: str, image, width=None, height=None, byte_offset: int = 0,
@@ -353,9 +365,10 @@ class Filter:
         self.dirty = True
 
     def set(self, name: str, value):
-        if name == "mesh" and value is not None:
+        if name == "mesh" and value is not None and not isinstance(value, Mesh):
             raise OidnError(OidnError.INVALID_ARGUMENT,
-                            "the 'mesh' parameter takes only None: one device")
+                            "the 'mesh' parameter takes a parallel.mesh.Mesh or None, not "
+                            f"{type(value).__name__}")
         if name in self.params:
             self.params[name] = value
             self.dirty = True
@@ -439,6 +452,7 @@ class Filter:
             self._tensors, self.using_random_weights = tensors, random_w
             self._weights_key = key
             self._net = None  # weights changed: cast again below
+            self._mesh_nets = {}
         self._weights_name = name
 
         n_in = sum(3 for f in self._features() if f)
@@ -663,13 +677,46 @@ class Filter:
         padded = torch.zeros((max(h, tile_h), max(w, tile_w), stacked.shape[-1]),
                              dtype=torch.float32, device=stacked.device)
         padded[:h, :w] = stacked
-        out = torch.empty((h, w, 3), dtype=torch.float32, device=stacked.device)
-        for oh, ow, th, tw in self._tile_grid(h, w):
-            ih0, iw0, _, _ = self._window(oh, ow, h, w)
-            y = self._tile_pipeline(names, padded[ih0:ih0 + tile_h, iw0:iw0 + tile_w], transfer)
-            out[oh:oh + th, ow:ow + tw] = y[oh - ih0:oh - ih0 + th, ow - iw0:ow - iw0 + tw]
+        mesh = self.params.get("mesh")
+        if mesh is not None:
+            out = self._execute_mesh(mesh, names, padded, h, w, transfer)
+        else:
+            out = torch.empty((h, w, 3), dtype=torch.float32, device=stacked.device)
+            for oh, ow, th, tw in self._tile_grid(h, w):
+                ih0, iw0, _, _ = self._window(oh, ow, h, w)
+                y = self._tile_pipeline(names, padded[ih0:ih0 + tile_h, iw0:iw0 + tile_w],
+                                        transfer)
+                out[oh:oh + th, ow:ow + tw] = y[oh - ih0:oh - ih0 + th, ow - iw0:ow - iw0 + tw]
         self._write_output(output, out)
         self._progress(1.0)
+
+    def _execute_mesh(self, mesh: Mesh, names, padded: torch.Tensor, h: int, w: int,
+                      transfer) -> torch.Tensor:
+        """The tile table sharded over ``mesh`` (JAX ``_grid_pipeline`` with
+        a mesh): padded to a multiple of its size with no-op rows (th = tw =
+        0), device d runs rows [d*R/D, (d+1)*R/D) of it on its own copy of
+        the inputs and the U-Net into a private zeroed canvas, and the
+        canvases are summed onto the filter's device in device order. The
+        devices' tiles are issued in turn, so their launches overlap."""
+        tile_h, tile_w = self.tile_shape
+        table = [(oh, ow, th, tw, *self._window(oh, ow, h, w)[:2])
+                 for oh, ow, th, tw in self._tile_grid(h, w)]
+        table += [(0, 0, 0, 0, 0, 0)] * (-len(table) % mesh.size)
+        per = len(table) // mesh.size
+        inputs = [padded.to(d) for d in mesh.devices]
+        transfers = [color_mod.make_transfer(transfer.kind, transfer.input_scale.to(d))
+                     for d in mesh.devices]
+        canvases = [torch.zeros((h, w, 3), dtype=torch.float32, device=d) for d in mesh.devices]
+        for k in range(per):
+            for d, device in enumerate(mesh.devices):
+                oh, ow, th, tw, ih0, iw0 = table[d * per + k]
+                if th == 0 or tw == 0:
+                    continue  # a padding row writes nothing
+                y = self._tile_pipeline(names, inputs[d][ih0:ih0 + tile_h, iw0:iw0 + tile_w],
+                                        transfers[d], net=self._network_on(device))
+                canvases[d][oh:oh + th, ow:ow + tw] = \
+                    y[oh - ih0:oh - ih0 + th, ow - iw0:ow - iw0 + tw]
+        return sum_onto(canvases, padded.device)
 
     @staticmethod
     def _write_output(output, out: torch.Tensor) -> None:
@@ -724,13 +771,25 @@ class Filter:
                 device=self.device.torch_device, dtype=dtype).eval()
         return self._net
 
-    def _tile_pipeline(self, names, stacked: torch.Tensor, transfer) -> torch.Tensor:
+    def _network_on(self, device: torch.device) -> UNet:
+        """The committed network on ``device``: the filter's own there, else
+        a copy made once per change of weights (a mesh device)."""
+        if device == self.device.torch_device:
+            return self._network()
+        net = self._mesh_nets.get(device)
+        if net is None:
+            net = self._mesh_nets[device] = copy.deepcopy(self._network()).to(device)
+        return net
+
+    def _tile_pipeline(self, names, stacked: torch.Tensor, transfer,
+                       net: UNet | None = None) -> torch.Tensor:
         """pack -> pad to the alignment -> U-Net -> unpack for one window
-        ``stacked`` [th, tw, C] float32 on the device; returns [th, tw, 3]."""
+        ``stacked`` [th, tw, C] float32 on the device of ``net`` (default:
+        the filter's network); returns [th, tw, 3]."""
         hdr = bool(self.params["hdr"])
         snorm = self._snorm()
         has_color = self.images["color"] is not None
-        net = self._network()
+        net = self._network() if net is None else net
         x = _pack_input(names, stacked, transfer, hdr, snorm, has_color)
         th, tw = x.shape[0], x.shape[1]
         hp = round_up(max(th, 1), UNET_ALIGNMENT)

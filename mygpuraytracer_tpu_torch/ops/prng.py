@@ -65,9 +65,10 @@ def philox4x32_10(k0, k1, c0, c1, c2, c3):
     return c0, c1, c2, c3
 
 
-def uniforms_reference(seed: int, k: int, n: int, device="cpu") -> torch.Tensor:
-    """Plain version of K6: the [k, n] float32 block of the counter stream."""
-    col = torch.arange(n, dtype=torch.int64, device=device)
+def uniforms_reference(seed: int, k: int, n: int, device="cpu", col0: int = 0) -> torch.Tensor:
+    """Plain version of K6: the [k, n] float32 block of the counter stream,
+    its columns ``col0 .. col0 + n - 1``."""
+    col = torch.arange(col0, col0 + n, dtype=torch.int64, device=device)
     word = ((int(seed) & rng.MASK32) * MIX + col // _BLK) & rng.MASK32
     group = torch.arange((k + 3) // 4, dtype=torch.int64, device=device)[:, None]
     words = philox4x32_10(word[None, :], 0, group, (col % _BLK)[None, :], 0, 0)
@@ -75,23 +76,24 @@ def uniforms_reference(seed: int, k: int, n: int, device="cpu") -> torch.Tensor:
     return (rows >> 8).to(torch.float32) * 2.0**-24
 
 
-def pallas_uniforms(seed: int, k: int, n: int, device="cuda") -> torch.Tensor:
-    """[k, n] U[0, 1) of the counter stream under the int32 ``seed``: one K6
-    launch on the current stream for a CUDA device, the plain version for
-    the CPU."""
+def pallas_uniforms(seed: int, k: int, n: int, device="cuda", col0: int = 0) -> torch.Tensor:
+    """[k, n] U[0, 1) of the counter stream under the int32 ``seed``, its
+    columns ``col0 .. col0 + n - 1``: one K6 launch on the current stream
+    for a CUDA device, the plain version for the CPU."""
     global LAUNCHES
     device = torch.device(device)
     if device.type == "cpu":
-        return uniforms_reference(seed, k, n, device)
+        return uniforms_reference(seed, k, n, device, col0)
     if device.type != "cuda":
         raise ValueError(f"K6 runs on CUDA or (plain) the CPU, not {device}")
-    if not -(2**31) <= int(seed) < 2**31 or k < 0 or n < 0:
-        raise ValueError(f"need an int32 seed and k, n >= 0, got {seed}, {k}, {n}")
+    if not -(2**31) <= int(seed) < 2**31 or k < 0 or n < 0 or col0 < 0:
+        raise ValueError(f"need an int32 seed and k, n, col0 >= 0, got {seed}, {k}, {n}, {col0}")
     out = torch.empty((k, n), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-    err = _build.library().k6_uniforms(int(seed), out.data_ptr(), k, n,
-                                       _build.stream_handle(out.device))
+    with _build.device_guard(out.device):
+        err = _build.library().k6_uniforms(int(seed), out.data_ptr(), k, n, int(col0),
+                                           _build.stream_handle(out.device))
     if err != 0:
         raise RuntimeError(f"K6 launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -109,12 +111,17 @@ def uniforms_mode(options, device) -> str:
 
 
 def iteration_uniforms(options, ikey: rng.Key, iteration: int, k: int, n: int,
-                       device="cuda") -> torch.Tensor:
+                       device="cuda", pixels: tuple[int, int] | None = None) -> torch.Tensor:
     """One iteration's [k, n] uniforms under the iteration key ``ikey``:
     K6 under the seed ``randint(ikey)`` where :func:`uniforms_mode` says
-    "pallas", else ``jax.random.uniform(ikey, (k, n))``. ``iteration`` is
-    unused, as in the JAX package."""
+    "pallas", else ``jax.random.uniform(ikey, (k, n))``. ``pixels`` =
+    (p0, count) gives only the columns p0 .. p0 + count - 1 of that block,
+    bit for bit ([k, count]). ``iteration`` is unused, as in the JAX
+    package."""
     del iteration
+    p0, count = pixels if pixels is not None else (0, n)
     if uniforms_mode(options, device) == "pallas":
-        return pallas_uniforms(rng.randint(ikey), k, n, device)
-    return rng.uniform(ikey, (k, n), device)
+        return pallas_uniforms(rng.randint(ikey), k, count, device, col0=p0)
+    if pixels is None:
+        return rng.uniform(ikey, (k, n), device)
+    return rng.uniform_columns(ikey, k, n, p0, count, device)

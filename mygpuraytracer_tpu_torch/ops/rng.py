@@ -150,6 +150,20 @@ def random_bits(key: Key, numel: int, device="cpu", offset: int = 0) -> torch.Te
     return y0 ^ y1
 
 
+def uniform_columns(key: Key, rows: int, n: int, p0: int, count: int,
+                    device="cpu") -> torch.Tensor:
+    """Columns ``p0 .. p0 + count - 1`` of ``uniform(key, (rows, n))``:
+    element (r, c) is flat element ``r * n + p0 + c`` of the draw, so the
+    slice equals those columns of the whole block bit for bit (the pixel
+    range of a sharded render)."""
+    if not 0 <= p0 <= n - count:
+        raise ValueError(f"columns {p0} .. {p0 + count - 1} lie outside [0, {n})")
+    idx = (torch.arange(rows, dtype=torch.int64, device=device)[:, None] * n
+           + torch.arange(p0, p0 + count, dtype=torch.int64, device=device)[None, :])
+    y0, y1 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK32)
+    return bits_to_uniform(y0 ^ y1)
+
+
 def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     """JAX's float32 uniform in [0, 1) from 32-bit words."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)

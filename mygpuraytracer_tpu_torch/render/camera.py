@@ -35,12 +35,15 @@ def generate_camera_rays(
     cam: CameraParams,
     resolution: tuple[int, int],
     options: RenderOptions,
-    uniforms: torch.Tensor,  # [>=4, N] rows: aa_x, aa_y, dof_u, dof_v
+    uniforms: torch.Tensor,  # [>=4, count] rows: aa_x, aa_y, dof_u, dof_v
+    p0: int = 0,
 ):
-    """Returns (origins Vec3, directions Vec3) over N = W*H lanes."""
+    """Returns (origins Vec3, directions Vec3) over the lanes of pixels
+    p0 .. p0 + count - 1 (count = the uniforms' columns; the whole image:
+    p0 = 0, count = W*H)."""
     width, height = resolution
-    n = width * height
-    idx = torch.arange(n, dtype=torch.int32, device=uniforms.device)
+    n = uniforms.shape[1]
+    idx = torch.arange(p0, p0 + n, dtype=torch.int32, device=uniforms.device)
     x = (idx % width).float()
     y = torch.div(idx, width, rounding_mode="floor").float()
 

@@ -30,7 +30,13 @@ selects), so their images equal their plain versions'
 
 The wrappers count their launches in ``LAUNCHES`` (K1) and
 ``BOUNCE_LAUNCHES`` (K5). For CPU tensors they run the plain versions; for
-CUDA tensors they launch the kernel or raise.
+CUDA tensors they launch the kernel, on the accumulator's device, or raise.
+
+Each takes an optional pixel range ``pixels = (p0, count)``: the
+accumulator is then [9, count] and holds the image's pixels p0 .. p0 +
+count - 1, which draw at their own RNG counters, so ranges that tile the
+image sum to the whole launch's accumulator bit for bit (the kernels and
+their plain versions alike; ``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -109,6 +115,16 @@ def scene_record(meta: SceneMeta, camera: CameraParams) -> torch.Tensor:
     return torch.from_numpy(rec).to(camera.position.device)
 
 
+def _pixel_range(meta: SceneMeta, pixels: tuple[int, int] | None) -> tuple[int, int, int]:
+    """(n, p0, count): the image's pixel count and the range ``pixels``
+    (default: the whole image), checked to lie in it."""
+    n = meta.resolution[0] * meta.resolution[1]
+    p0, count = (0, n) if pixels is None else (int(pixels[0]), int(pixels[1]))
+    if not (0 <= p0 and 0 <= count and p0 + count <= n):
+        raise ValueError(f"pixel range ({p0}, {count}) lies outside the image's {n} pixels")
+    return n, p0, count
+
+
 def _check_acc(acc: torch.Tensor, n: int, name: str) -> None:
     if acc.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or (plain) CPU tensors, not {acc.device}")
@@ -120,14 +136,18 @@ def _check_acc(acc: torch.Tensor, n: int, name: str) -> None:
 def megakernel_accumulate_reference(
     dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
     start_iteration: int, num_iters: int, base_key: rng.Key,
+    pixels: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Plain version of K1: the wavefront per iteration, with threefry
     numbers whatever ``options.rng`` says (as K1 draws), accumulated into
-    ``acc`` [9, N] in place."""
+    ``acc`` [9, count] (the pixel range; [9, N] for the whole image) in
+    place."""
+    _pixel_range(meta, pixels)
     options = dataclasses.replace(options, megakernel=False, rng="threefry")
     for i in range(num_iters):
         it = start_iteration + i
-        accumulate_sample(acc, wavefront_sample(dev, meta, options, it, base_key), it)
+        accumulate_sample(acc, wavefront_sample(dev, meta, options, it, base_key,
+                                                pixels=pixels), it)
     return acc
 
 
@@ -135,11 +155,12 @@ def megakernel_accumulate(
     dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
     start_iteration: int, num_iters: int, base_key: rng.Key,
     record: torch.Tensor | None = None, stats: torch.Tensor | None = None,
-    threads: int = 0, blocks_per_sm: int = 0,
+    threads: int = 0, blocks_per_sm: int = 0, pixels: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Accumulate ``num_iters`` iterations from ``start_iteration`` into
     ``acc`` [9, N] float32 (rows: color sum rgb, albedo rgb, normal xyz) in
-    one kernel launch on the current stream. ``record`` is
+    one kernel launch on the current stream; with ``pixels`` = (p0, count),
+    into ``acc`` [9, count] for the image's pixels p0 .. p0 + count - 1. ``record`` is
     :func:`scene_record`, built here when not given. ``stats`` (int64
     [K1_STATS]), if given, selects the counting build and gains its
     counters. ``threads`` (32 to 256, a multiple of 32) and
@@ -148,10 +169,10 @@ def megakernel_accumulate(
     global LAUNCHES
     if acc.device.type == "cpu":
         return megakernel_accumulate_reference(
-            dev, meta, options, acc, start_iteration, num_iters, base_key)
+            dev, meta, options, acc, start_iteration, num_iters, base_key, pixels)
     width, height = meta.resolution
-    n = width * height
-    _check_acc(acc, n, "K1")
+    n, p0, count = _pixel_range(meta, pixels)
+    _check_acc(acc, count, "K1")
     if not supports_megakernel(meta, options) or _uses_bvh(meta):
         raise ValueError("scene/options not supported by K1 (see supports_megakernel)")
     if options.dir_aov:
@@ -171,18 +192,19 @@ def megakernel_accumulate(
                               or tuple(stats.shape) != (K1_STATS,) or not stats.is_contiguous()):
         raise ValueError(f"stats must be a contiguous int64 [{K1_STATS}] tensor on {acc.device}")
 
-    from .._build import library, stream_handle
+    from .._build import device_guard, library, stream_handle
 
     queue = torch.empty(1, dtype=torch.int32, device=acc.device)  # zeroed by the launch
     dof = bool(options.depth_of_field and options.lens_radius > 0)
-    err = library().k1_accumulate(
-        record.data_ptr(), acc.data_ptr(), queue.data_ptr(),
-        stats.data_ptr() if stats is not None else None, G, F, n, width, height,
-        meta.trace_depth, int(start_iteration), int(num_iters), base_key[0], base_key[1],
-        int(bool(options.antialiasing)), int(dof),
-        float(options.lens_radius), float(options.focal_distance), int(threads),
-        int(blocks_per_sm), stream_handle(acc.device),
-    )
+    with device_guard(acc.device):
+        err = library().k1_accumulate(
+            record.data_ptr(), acc.data_ptr(), queue.data_ptr(),
+            stats.data_ptr() if stats is not None else None, G, F, n, p0, count, width, height,
+            meta.trace_depth, int(start_iteration), int(num_iters), base_key[0], base_key[1],
+            int(bool(options.antialiasing)), int(dof),
+            float(options.lens_radius), float(options.focal_distance), int(threads),
+            int(blocks_per_sm), stream_handle(acc.device),
+        )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -192,27 +214,29 @@ def megakernel_accumulate(
 def bvh_bounce_accumulate_reference(
     dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
     start_iteration: int, num_iters: int, base_key: rng.Key,
+    pixels: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Plain version of K5: the wavefront per iteration, accumulated into
-    ``acc`` [9, N] in place. Its numbers are the plain versions of the
+    ``acc`` [9, count] (the pixel range; [9, N] for the whole image) in
+    place. Its numbers are the plain versions of the
     stream K5 draws (``prng.uniforms_mode`` of ``options.rng`` and
     ``acc``'s device), and its scene query is
     ``ops/trace.py::bvh_scene_hit_nearfar`` (``mesh_hit_reference``) over
     ``face_plane`` (the TPU kernel walked a sublane-shifted copy,
     ``face_shift``, which the port does not build)."""
-    n = meta.resolution[0] * meta.resolution[1]
+    n, p0, count = _pixel_range(meta, pixels)
     k = num_rng_streams(meta.trace_depth)
     mode = prng.uniforms_mode(options, acc.device)
     fp, bounds = dev.face_plane, dev.cluster_bounds
-    everyone = torch.ones(n, dtype=torch.bool, device=acc.device)
+    everyone = torch.ones(count, dtype=torch.bool, device=acc.device)
     query = lambda o, d, active=None: bvh_scene_hit_nearfar(
         meta, fp, o, d, everyone if active is None else active, bounds)
     for i in range(num_iters):
         it = start_iteration + i
         ikey = rng.iteration_key(base_key, it)
-        U = (prng.uniforms_reference(rng.randint(ikey), k, n, acc.device) if mode == "pallas"
-             else rng.uniform(ikey, (k, n), acc.device))
-        accumulate_sample(acc, trace_sample(dev, meta, options, it, U, query), it)
+        U = (prng.uniforms_reference(rng.randint(ikey), k, count, acc.device, col0=p0)
+             if mode == "pallas" else rng.uniform_columns(ikey, k, n, p0, count, acc.device))
+        accumulate_sample(acc, trace_sample(dev, meta, options, it, U, query, p0=p0), it)
     return acc
 
 
@@ -220,49 +244,52 @@ def bvh_bounce_accumulate(
     dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
     start_iteration: int, num_iters: int, base_key: rng.Key,
     record: torch.Tensor | None = None, visits: torch.Tensor | None = None,
+    pixels: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Accumulate ``num_iters`` iterations from ``start_iteration`` into
     ``acc`` [9, N] float32 (rows: color sum rgb, albedo rgb, normal xyz):
     per iteration, the raygen uniforms (``iteration_uniforms``, 4 rows), the
     camera rays, then one K5 launch (:func:`bounce_launch`). ``record`` is
     :func:`scene_record`, built here when not given. ``visits`` (int32 [N]),
-    if given, gains the clusters each ray tested."""
+    if given, gains the clusters each ray tested. With ``pixels`` = (p0,
+    count), ``acc`` is [9, count] (and ``visits`` [count]) for the image's
+    pixels p0 .. p0 + count - 1."""
     if acc.device.type == "cpu":
         return bvh_bounce_accumulate_reference(
-            dev, meta, options, acc, start_iteration, num_iters, base_key)
+            dev, meta, options, acc, start_iteration, num_iters, base_key, pixels)
     if num_iters < 0 or start_iteration < 1:
         raise ValueError("need num_iters >= 0, start_iteration >= 1")
     if record is None:
         record = scene_record(meta, dev.camera)
-    n = meta.resolution[0] * meta.resolution[1]
+    n, p0, _ = _pixel_range(meta, pixels)
     for i in range(num_iters):
         it = start_iteration + i
         ikey = rng.iteration_key(base_key, it)
-        U = prng.iteration_uniforms(options, ikey, it, 4, n, acc.device)
-        o, d = generate_camera_rays(dev.camera, meta.resolution, options, U)
+        U = prng.iteration_uniforms(options, ikey, it, 4, n, acc.device, pixels)
+        o, d = generate_camera_rays(dev.camera, meta.resolution, options, U, p0=p0)
         rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z])
-        bounce_launch(dev, meta, options, acc, rays, it, ikey, record, visits)
+        bounce_launch(dev, meta, options, acc, rays, it, ikey, record, visits, p0=p0)
     return acc
 
 
 def bounce_launch(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
                   rays: torch.Tensor, iteration: int, ikey: rng.Key, record: torch.Tensor,
                   visits: torch.Tensor | None = None,
-                  stats: torch.Tensor | None = None) -> torch.Tensor:
+                  stats: torch.Tensor | None = None, p0: int = 0) -> torch.Tensor:
     """One K5 launch on the current stream: iteration ``iteration``'s bounce
-    loop from the camera rays ``rays`` [6, N] (origin xyz, direction xyz)
-    under the iteration key ``ikey``, added into ``acc`` [9, N] (CUDA
-    tensors only). ``visits`` (int32 [N]) gains the clusters each ray
-    tested; ``stats`` (int64 [STATS]) gains the tree nodes the rays
-    visited, the warp traversal iterations, the warp bounce rounds and the
-    lanes of ended paths over those rounds."""
+    loop from the camera rays ``rays`` [6, count] (origin xyz, direction
+    xyz) of the image's pixels p0 .. p0 + count - 1 (the whole image: p0 =
+    0, count = N) under the iteration key ``ikey``, added into ``acc`` [9,
+    count] (CUDA tensors only). ``visits`` (int32 [count]) gains the
+    clusters each ray tested; ``stats`` (int64 [STATS]) gains the tree nodes
+    the rays visited, the warp traversal iterations, the warp bounce rounds
+    and the lanes of ended paths over those rounds."""
     global BOUNCE_LAUNCHES
-    width, height = meta.resolution
-    n = width * height
     if acc.device.type != "cuda":
         raise ValueError("bounce_launch takes CUDA tensors; bvh_bounce_accumulate runs K5's "
                          f"plain version for CPU tensors, got {acc.device}")
-    _check_acc(acc, n, "K5")
+    n, p0, count = _pixel_range(meta, (p0, rays.shape[-1]))
+    _check_acc(acc, count, "K5")
     if not (supports_megakernel(meta, options) and _uses_bvh(meta)):
         raise ValueError("scene/options not supported by K5 (see supports_megakernel, _uses_bvh)")
     if options.dir_aov:
@@ -277,27 +304,28 @@ def bounce_launch(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
         raise ValueError(f"K5 takes 2 to 2^{MAX_TREE_DEPTH} clusters of 128 faces, got "
                          f"{num_clusters} clusters, tree {tuple(tree.shape)}, faces "
                          f"{tuple(faces.shape)}")
-    if tuple(rays.shape) != (6, n):
-        raise ValueError(f"rays must be [6, {n}], got {tuple(rays.shape)}")
+    if tuple(rays.shape) != (6, count):
+        raise ValueError(f"rays must be [6, {count}], got {tuple(rays.shape)}")
     for name, x in (("rays", rays), ("record", record), ("face_gather", faces), ("tree", tree)):
         if x.device != acc.device or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {acc.device}")
-    for name, x, dtype, shape in (("visits", visits, torch.int32, (n,)),
+    for name, x, dtype, shape in (("visits", visits, torch.int32, (count,)),
                                   ("stats", stats, torch.int64, (STATS,))):
         if x is not None and (x.device != acc.device or x.dtype != dtype
                               or tuple(x.shape) != shape or not x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)} tensor on "
                              f"{acc.device}")
 
-    from .._build import library, stream_handle
+    from .._build import device_guard, library, stream_handle
 
     counter = prng.uniforms_mode(options, acc.device) == "pallas"
     pointer = lambda x: x.data_ptr() if x is not None else None
-    err = library().k5_bounce(
-        rays.data_ptr(), record.data_ptr(), faces.data_ptr(), tree.data_ptr(), acc.data_ptr(),
-        pointer(visits), pointer(stats), n, meta.trace_depth, int(iteration), int(counter),
-        ikey[0], ikey[1], rng.randint(ikey) if counter else 0, num_clusters, depth,
-        stream_handle(acc.device))
+    with device_guard(acc.device):
+        err = library().k5_bounce(
+            rays.data_ptr(), record.data_ptr(), faces.data_ptr(), tree.data_ptr(),
+            acc.data_ptr(), pointer(visits), pointer(stats), n, p0, count, meta.trace_depth,
+            int(iteration), int(counter), ikey[0], ikey[1], rng.randint(ikey) if counter else 0,
+            num_clusters, depth, stream_handle(acc.device))
     if err != 0:
         raise RuntimeError(f"K5 launch failed: CUDA error {err}")
     BOUNCE_LAUNCHES += 1
@@ -306,21 +334,24 @@ def bounce_launch(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
 
 def accumulate(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
                start_iteration: int, num_iters: int, base_key: rng.Key,
-               record: torch.Tensor | None = None) -> torch.Tensor:
-    """Accumulate ``num_iters`` iterations into ``acc`` [9, N] through the
-    whole-iteration kernel the scene takes: K5 (:func:`bvh_bounce_accumulate`)
-    for a large mesh under ``bounce_megakernel``, else K1
-    (:func:`megakernel_accumulate`)."""
+               record: torch.Tensor | None = None,
+               pixels: tuple[int, int] | None = None) -> torch.Tensor:
+    """Accumulate ``num_iters`` iterations into ``acc`` [9, N] ([9, count]
+    for the pixel range ``pixels``) through the whole-iteration kernel the
+    scene takes: K5 (:func:`bvh_bounce_accumulate`) for a large mesh under
+    ``bounce_megakernel``, else K1 (:func:`megakernel_accumulate`)."""
     run = bvh_bounce_accumulate if _uses_bvh(meta) else megakernel_accumulate
-    return run(dev, meta, options, acc, start_iteration, num_iters, base_key, record=record)
+    return run(dev, meta, options, acc, start_iteration, num_iters, base_key, record=record,
+               pixels=pixels)
 
 
 def megakernel_sample(dev: DeviceScene, meta: SceneMeta, options, iteration: int,
-                      base_key: rng.Key) -> SampleOutput:
+                      base_key: rng.Key,
+                      pixels: tuple[int, int] | None = None) -> SampleOutput:
     """One iteration through :func:`accumulate` into a zeroed accumulator:
     this sample's color * pi and, at iteration 1, its first-hit albedo and
     normal (zeros otherwise), as ``render_sample`` returns them."""
-    n = meta.resolution[0] * meta.resolution[1]
-    acc = torch.zeros((9, n), dtype=torch.float32, device=dev.camera.position.device)
-    accumulate(dev, meta, options, acc, iteration, 1, base_key)
+    _, _, count = _pixel_range(meta, pixels)
+    acc = torch.zeros((9, count), dtype=torch.float32, device=dev.camera.position.device)
+    accumulate(dev, meta, options, acc, iteration, 1, base_key, pixels=pixels)
     return SampleOutput(color=Vec3(*acc[0:3]), albedo=Vec3(*acc[3:6]), normal=Vec3(*acc[6:9]))

@@ -39,6 +39,13 @@ tensors a mesh of more than 256 faces goes through the mesh tiers' CUDA
 kernel (ops/mesh_hit.py), everything else is PyTorch. The kernels' plain
 versions run ``wavefront_sample``/``trace_sample`` with the three options
 off (their keyword defaults).
+
+Every function takes an optional pixel range ``pixels = (p0, count)``: the
+lanes are then the image's pixels p0 .. p0 + count - 1 and every [.., N]
+array is [.., count]. Raygen reads the image's pixel p0 + lane and the
+uniforms are those columns of the whole block, so the lanes compute what
+the same pixels of a whole-image sample do, bit for bit (the pixel-sharded
+render, ``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -187,38 +194,44 @@ def render_sample(
     iteration: int,  # 1-based like the reference
     base_key: rng.Key,
     cache: HitSoA | None = None,
+    pixels: tuple[int, int] | None = None,
 ) -> SampleOutput:
-    """One iteration under ``options``. ``cache`` is the first-bounce cache
+    """One iteration under ``options`` (over the pixel range ``pixels``, or
+    the whole image). ``cache`` is the first-bounce cache
     (``make_empty_cache``; None: none yet); the result carries its update."""
     if options.megakernel and not options.dir_aov:
         from .megakernel import megakernel_sample, supports_megakernel
 
         if supports_megakernel(meta, options):
-            out = megakernel_sample(dev, meta, options, iteration, base_key)
+            out = megakernel_sample(dev, meta, options, iteration, base_key, pixels)
             return out._replace(cache=cache)
     return wavefront_sample(
         dev, meta, options, iteration, base_key, cache,
         sort=options.sort_by_material and meta.num_geoms > 1 and not options.dir_aov,
-        cache_first_bounce=options.first_bounce_cache_active, dir_aov=options.dir_aov)
+        cache_first_bounce=options.first_bounce_cache_active, dir_aov=options.dir_aov,
+        pixels=pixels)
 
 
 def wavefront_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions,
                      iteration: int, base_key: rng.Key, cache: HitSoA | None = None, *,
                      sort: bool = False, cache_first_bounce: bool = False,
-                     dir_aov: bool = False) -> SampleOutput:
+                     dir_aov: bool = False,
+                     pixels: tuple[int, int] | None = None) -> SampleOutput:
     """One iteration of the wavefront: ``iteration_uniforms`` and
     ``intersect_soa`` with the options' mesh settings, then
     :func:`trace_sample` with the wavefront options given here (all off by
     default, as the kernels' plain versions call it)."""
     n = meta.resolution[0] * meta.resolution[1]
     U = iteration_uniforms(options, rng.iteration_key(base_key, iteration), iteration,
-                           num_rng_streams(meta.trace_depth), n, dev.camera.position.device)
+                           num_rng_streams(meta.trace_depth), n, dev.camera.position.device,
+                           pixels)
     query = lambda o, d, active=None: intersect_soa(
         meta, dev, o, d, options.face_chunk, bounding_box=options.bounding_box,
         mesh_pallas=options.mesh_pallas, mesh_sort=options.mesh_sort,
         mesh_tier=options.mesh_tier, winner_table=options.winner_table, active=active)
     return trace_sample(dev, meta, options, iteration, U, query, cache, sort=sort,
-                        cache_first_bounce=cache_first_bounce, dir_aov=dir_aov)
+                        cache_first_bounce=cache_first_bounce, dir_aov=dir_aov,
+                        p0=pixels[0] if pixels is not None else 0)
 
 
 def _shade_rows(U: torch.Tensor, depth: int) -> torch.Tensor:
@@ -233,19 +246,22 @@ def _shade_rows(U: torch.Tensor, depth: int) -> torch.Tensor:
 def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iteration: int,
                  U: torch.Tensor, query: Callable[..., HitSoA],
                  cache: HitSoA | None = None, *, sort: bool = False,
-                 cache_first_bounce: bool = False, dir_aov: bool = False) -> SampleOutput:
-    """Raygen from the uniforms ``U`` [4 + 3*depth, N], then the bounce loop
-    over ``query(origin, direction, active=None)``, shading and the AOVs.
+                 cache_first_bounce: bool = False, dir_aov: bool = False,
+                 p0: int = 0) -> SampleOutput:
+    """Raygen from the uniforms ``U`` [4 + 3*depth, count] of pixels p0 ..
+    p0 + count - 1 (the whole image: p0 = 0, count = N), then the bounce
+    loop over ``query(origin, direction, active=None)``, shading and the
+    AOVs.
 
     ``sort`` runs the material-sorted bounce (``options.sort_impl``);
     ``cache_first_bounce`` takes bounce 0's hit from ``cache`` after
     iteration 1 (or queries and stores it, at iteration 1 or when ``cache``
     is None); ``dir_aov`` adds the directional AOV."""
-    n = meta.resolution[0] * meta.resolution[1]
+    n = U.shape[1]
     depth = meta.trace_depth
     device = U.device
 
-    o, d = generate_camera_rays(dev.camera, meta.resolution, options, U)
+    o, d = generate_camera_rays(dev.camera, meta.resolution, options, U, p0=p0)
     ones = torch.ones(n, dtype=torch.float32, device=device)
     state = PathStateSoA(
         origin=o, direction=d, color=Vec3(ones, ones, ones),

@@ -60,16 +60,78 @@ def _ssim_parts(a, b, window, c1=0.01**2, c2=0.03**2):
     return ssim, cs
 
 
-def ssim(a: torch.Tensor, b: torch.Tensor, window_size: int = 11) -> torch.Tensor:
-    """Mean SSIM over NHWC batches (values assumed in [0, 1])."""
+def ssim_sum(a: torch.Tensor, b: torch.Tensor,
+             window_size: int = 11) -> tuple[torch.Tensor, int]:
+    """The sum behind :func:`ssim`'s mean and its element count."""
     window = _gaussian_window(window_size, device=a.device).to(a.dtype)
     s, _ = _ssim_parts(a, b, window)
-    return torch.mean(s)
+    return torch.sum(s), s.numel()
+
+
+def ssim(a: torch.Tensor, b: torch.Tensor, window_size: int = 11) -> torch.Tensor:
+    """Mean SSIM over NHWC batches (values assumed in [0, 1])."""
+    total, count = ssim_sum(a, b, window_size)
+    return total / count
 
 
 def _downsample2(x: torch.Tensor) -> torch.Tensor:
     """2x2 box mean with stride 2 (VALID: an odd last row or column drops)."""
     return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+def _ms_ssim_scales(h: int, w: int, window_size: int) -> np.ndarray:
+    """The used scales' weights, renormalized: each scale needs H, W >= the
+    window after the 2x downsamples before it."""
+    n_scales = 0
+    hh, ww = h, w
+    while n_scales < len(_MSSSIM_WEIGHTS) and hh >= window_size and ww >= window_size:
+        n_scales += 1
+        hh //= 2
+        ww //= 2
+    if n_scales == 0:
+        raise ValueError(f"input {h}x{w} too small for SSIM window {window_size}")
+    weights = np.asarray(_MSSSIM_WEIGHTS[:n_scales])
+    return weights / weights.sum()
+
+
+def ms_ssim_sums(a: torch.Tensor, b: torch.Tensor,
+                 window_size: int = 11) -> list[tuple[torch.Tensor, int]]:
+    """The partial sums behind :func:`ms_ssim` on a batch or one shard of
+    it: per scale, the sum of ``cs`` (the last scale: of ``ssim``) and its
+    element count. Summed over the shards and divided, they give the whole
+    batch's per-scale means, from which :func:`ms_ssim_from_means` forms
+    MS-SSIM (the product form is not the mean of its shards' values)."""
+    n_scales = len(_ms_ssim_scales(int(a.shape[1]), int(a.shape[2]), window_size))
+    window = _gaussian_window(window_size, device=a.device).to(a.dtype)
+    sums = []
+    for i in range(n_scales):
+        s, cs = _ssim_parts(a, b, window)
+        v = s if i == n_scales - 1 else cs
+        sums.append((torch.sum(v), v.numel()))
+        if i != n_scales - 1:
+            a = _downsample2(a)
+            b = _downsample2(b)
+    return sums
+
+
+def ms_ssim_from_means(means, h: int, w: int, window_size: int = 11,
+                       product: bool = True) -> torch.Tensor:
+    """MS-SSIM of H x W inputs from the whole batch's per-scale means (of
+    :func:`ms_ssim_sums`): the product of max(v, 1e-6)^w, or the weighted
+    sum."""
+    weights = _ms_ssim_scales(h, w, window_size)
+    if len(means) != len(weights):
+        raise ValueError(f"{h}x{w} takes {len(weights)} scales, got {len(means)} means")
+    device = means[0].device
+    if product:
+        total = torch.ones((), device=device)
+        for wgt, v in zip(weights, means):
+            total = total * torch.pow(torch.clamp_min(v, 1e-6), float(wgt))
+        return total
+    total = torch.zeros((), device=device)
+    for wgt, v in zip(weights, means):
+        total = total + float(wgt) * v
+    return total
 
 
 def ms_ssim(a: torch.Tensor, b: torch.Tensor, window_size: int = 11,
@@ -80,32 +142,5 @@ def ms_ssim(a: torch.Tensor, b: torch.Tensor, window_size: int = 11,
     window after the 2x downsamples before it; the used scales' weights are
     renormalized to sum to 1. ``product`` selects the product form (the
     metric); the sum form has bounded gradients (the loss)."""
-    h, w = int(a.shape[1]), int(a.shape[2])
-    n_scales = 0
-    hh, ww = h, w
-    while n_scales < len(_MSSSIM_WEIGHTS) and hh >= window_size and ww >= window_size:
-        n_scales += 1
-        hh //= 2
-        ww //= 2
-    if n_scales == 0:
-        raise ValueError(f"input {h}x{w} too small for SSIM window {window_size}")
-    weights = np.asarray(_MSSSIM_WEIGHTS[:n_scales])
-    weights = weights / weights.sum()
-
-    window = _gaussian_window(window_size, device=a.device).to(a.dtype)
-    vals = []
-    for i in range(n_scales):
-        s, cs = _ssim_parts(a, b, window)
-        vals.append(torch.mean(s) if i == n_scales - 1 else torch.mean(cs))
-        if i != n_scales - 1:
-            a = _downsample2(a)
-            b = _downsample2(b)
-    if product:
-        total = torch.ones((), device=a.device)
-        for wgt, v in zip(weights, vals):
-            total = total * torch.pow(torch.clamp_min(v, 1e-6), float(wgt))
-        return total
-    total = torch.zeros((), device=a.device)
-    for wgt, v in zip(weights, vals):
-        total = total + float(wgt) * v
-    return total
+    means = [total / count for total, count in ms_ssim_sums(a, b, window_size)]
+    return ms_ssim_from_means(means, int(a.shape[1]), int(a.shape[2]), window_size, product)

@@ -32,9 +32,18 @@ layout and its step count, ``epoch`` and ``step``. A JAX checkpoint pickles
 optax's state objects and is refused with a pointer to ``.tza`` export,
 which both packages read and write.
 
-``mesh`` keeps its name and takes only ``None``: the multi-device trainer is
-not ported yet. Every entry point runs on ``device="cuda"`` unless the
-caller asks for the CPU.
+``mesh`` (a ``parallel.mesh.Mesh``, :func:`make_mesh`) runs the host-fed
+trainer data-parallel, as the JAX trainer's ``dp`` axis does, and computes
+the same function: the loss of the whole batch. The batch splits evenly
+over the mesh's devices; each runs its shard's forward on a replica of the
+master weights made by a differentiable ``.to(device)``, returns the sums
+behind the loss's batch means (``losses.loss_sums``), and the first device
+forms the whole batch's means and the loss from them; one backward sums the
+replicas' gradients onto the master, where the clip, Adam and the schedule
+run as on one device. (Averaging the shards' losses or gradients would
+compute another function wherever the loss is not linear in its means.)
+``train_device`` stays on one device, as in the JAX package. Every entry
+point runs on ``device="cuda"`` unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -56,8 +65,9 @@ from ..denoise.tza import read_tza
 from ..denoise.unet import (UNet, init_unet_tensors, jax_tree, no_tf32, params_from_jax,
                             params_to_jax, unet_train_apply)
 from ..ops import rng
+from ..parallel import mesh as mesh_mod
 from .dataset import TileDataset, ValidationDataset
-from .losses import get_loss_function
+from .losses import get_loss_function, loss_from_means, loss_sums
 
 PATIENCE = 8  # validations without improvement before an early stop (train_device)
 DIVERGENCE = 50.0  # an epoch loss this many times the first one reverts the run
@@ -120,10 +130,47 @@ def exact_float32():
         yield
 
 
+def make_mesh(num_devices: int | None = None, devices=None) -> mesh_mod.Mesh:
+    """A 1-D "dp" mesh over the first ``num_devices`` devices (default:
+    every visible CUDA device; ``devices`` names others)."""
+    return mesh_mod.make_mesh(num_devices, "dp", devices)
+
+
 def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the trainer runs on one device: mesh must be None "
-                                  "(multi-device training is not ported yet)")
+    if mesh is not None and not isinstance(mesh, mesh_mod.Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh or None, not {type(mesh).__name__}")
+
+
+def _one_device(net: UNet) -> mesh_mod.Mesh:
+    """The mesh of the net's own device: one device, one shard."""
+    return mesh_mod.Mesh((next(net.parameters()).device,))
+
+
+def _shard_outputs(net: UNet, mesh, x, y, preprocess, dtype):
+    """Per device of ``mesh``, in order: the net's output on that device's
+    shard of the batch (x, y) and the shard's preprocessed target. The
+    forward runs on a replica of the net's weights made by a differentiable
+    ``.to(device)`` (the weights themselves on their own device), so one
+    backward sums the replicas' gradients onto the master."""
+    params = dict(net.named_parameters())
+    for device, (b0, count) in zip(mesh.devices, mesh_mod.split(x.shape[0], mesh)):
+        xd, yd = preprocess(x[b0:b0 + count].to(device), y[b0:b0 + count].to(device))
+        replica = {k: p.to(device) for k, p in params.items()}
+        pred = torch.func.functional_call(net, replica, (xd.to(dtype).permute(0, 3, 1, 2),))
+        yield pred.permute(0, 2, 3, 1).float(), yd
+
+
+def mesh_loss(cfg: TrainConfig, net: UNet, mesh, x, y, preprocess, dtype):
+    """The loss of the whole batch (x, y) split over ``mesh``: per device
+    the sums behind the loss's means on its shard (``losses.loss_sums``),
+    gathered on the first device, where the whole batch's means form the
+    loss. One device is the mesh :func:`_one_device`."""
+    totals, h, w = None, int(y.shape[1]), int(y.shape[2])
+    for pred, yd in _shard_outputs(net, mesh, x, y, preprocess, dtype):
+        sums = [(total.to(mesh.first), count) for total, count in loss_sums(cfg.loss, pred, yd)]
+        totals = sums if totals is None else [
+            (a + b, m + n) for (a, m), (b, n) in zip(totals, sums)]
+    return loss_from_means(cfg.loss, [total / count for total, count in totals], h, w)
 
 
 # ---- checkpoints ---------------------------------------------------------------
@@ -344,40 +391,46 @@ def _compute_dtype(cfg: TrainConfig) -> torch.dtype:
 
 
 def build_train_step(cfg: TrainConfig, optimizer: Optimizer, mesh=None):
-    """(step_fn, None): ``step_fn(x, y)`` takes one NHWC batch on the net's
+    """(step_fn, mesh): ``step_fn(x, y)`` takes one NHWC batch on the net's
     device, applies one update and returns the loss before it (a 0-d
-    device tensor; nothing is read back to the host)."""
+    device tensor; nothing is read back to the host). With ``mesh`` the
+    batch splits evenly over its devices (ValueError if it does not); the
+    loss is the whole batch's (:func:`mesh_loss`) either way, on the
+    mesh's first device."""
     _check_mesh(mesh)
-    loss_fn = get_loss_function(cfg.loss)
     dtype = _compute_dtype(cfg)
     preprocess = make_preprocess(cfg)
     net = optimizer.net
+    shards = mesh or _one_device(net)
 
     def step_fn(x, y):
         with exact_float32():
-            x, y = preprocess(x, y)
-            loss = loss_fn(unet_train_apply(net, x, dtype), y)
+            loss = mesh_loss(cfg, net, shards, x, y, preprocess, dtype)
             optimizer.adam.zero_grad(set_to_none=True)
             loss.backward()
         optimizer.step()
         return loss.detach()
 
-    return step_fn, None
+    return step_fn, mesh
 
 
 def build_eval_step(cfg: TrainConfig, mesh=None):
     """``eval_fn(net, x, y)``: per-example validation losses [B] (no grad),
-    so the caller can weight out the tiles that pad the last batch."""
+    so the caller can weight out the tiles that pad the last batch. With
+    ``mesh`` each device takes its shard of the batch and the losses are
+    concatenated in order on the first device."""
     _check_mesh(mesh)
     loss_fn = get_loss_function(cfg.loss)
     dtype = _compute_dtype(cfg)
     preprocess = make_preprocess(cfg)
 
     def eval_fn(net, x, y):
+        shards = mesh or _one_device(net)
         with torch.no_grad(), exact_float32():
-            x, y = preprocess(x, y)
-            pred = unet_train_apply(net, x, dtype)
-            return torch.stack([loss_fn(pred[b:b + 1], y[b:b + 1]) for b in range(pred.shape[0])])
+            return torch.cat([
+                torch.stack([loss_fn(pred[b:b + 1], yd[b:b + 1])
+                             for b in range(pred.shape[0])]).to(shards.first)
+                for pred, yd in _shard_outputs(net, shards, x, y, preprocess, dtype)])
 
     return eval_fn
 
@@ -396,11 +449,11 @@ def validate(cfg: TrainConfig, net: UNet, valid_ds: ValidationDataset, eval_fn) 
     return total / max(count, 1)
 
 
-def _validation(cfg: TrainConfig):
+def _validation(cfg: TrainConfig, mesh=None):
     valid_dir = cfg.valid_dir or os.path.join(cfg.data_dir, "valid")
     if os.path.isdir(valid_dir):
         try:
-            return ValidationDataset(valid_dir, cfg.tile_size), build_eval_step(cfg)
+            return ValidationDataset(valid_dir, cfg.tile_size), build_eval_step(cfg, mesh)
         except ValueError:
             pass
     return None, None
@@ -575,9 +628,12 @@ def train_device(cfg: TrainConfig, x_imgs, y_imgs, log_fn=None, device="cuda") -
 
 def train(cfg: TrainConfig, mesh=None, log_fn=None, device="cuda") -> dict:
     """Run training with batches from the host's TileDataset; auto-resumes
-    from result_dir. Returns the final params as a numpy tree."""
+    from result_dir. Returns the final params as a numpy tree. With
+    ``mesh`` every batch splits over its devices (:func:`build_train_step`)
+    and the master weights live on its first device (``device`` is not
+    used)."""
     _check_mesh(mesh)
-    device = torch.device(device)
+    device = mesh.first if mesh is not None else torch.device(device)
     dataset = TileDataset(cfg.data_dir, cfg.tile_size, seed=cfg.seed)
     params, ckpt, start_epoch = _resume(cfg)
     net = params_from_jax(params).to(device)
@@ -585,7 +641,7 @@ def train(cfg: TrainConfig, mesh=None, log_fn=None, device="cuda") -> dict:
     if ckpt is not None:
         optimizer.load_state(ckpt["opt_state"])
     step_fn, _ = build_train_step(cfg, optimizer, mesh)
-    valid_ds, eval_fn = _validation(cfg)
+    valid_ds, eval_fn = _validation(cfg, mesh)
     log_path = os.path.join(cfg.result_dir, "log.jsonl")
     os.makedirs(cfg.result_dir, exist_ok=True)
 

@@ -35,8 +35,8 @@ def _chunk(tag: bytes, payload: bytes) -> bytes:
     return struct.pack(">I", len(payload)) + tag + payload + crc
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write an HxWx3 image (float in [0,1] or uint8) as an RGB PNG."""
+def encode_png(img: np.ndarray) -> bytes:
+    """The RGB PNG file of an HxWx3 image (float in [0,1] or uint8)."""
     data = to_uint8(img)
     if data.ndim == 2:
         data = np.repeat(data[..., None], 3, axis=-1)
@@ -44,11 +44,14 @@ def write_png(path: str, img: np.ndarray) -> None:
         data = data[..., :3]
     h, w, _ = data.shape
     raw = b"".join(b"\x00" + data[i].tobytes() for i in range(h))  # filter 0 per row
+    return b"".join((_SIGNATURE, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)),
+                     _chunk(b"IDAT", zlib.compress(raw, 6)), _chunk(b"IEND", b"")))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write an HxWx3 image (float in [0,1] or uint8) as an RGB PNG."""
     with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(encode_png(img))
 
 
 def _unfilter_sequential(kind: int, line: bytes, prior: bytes, bpp: int) -> bytearray:

@@ -352,7 +352,7 @@ def test_default_device_needs_cuda():
 
 def test_device_buffer_refuses_window_and_mesh_refuses_devices():
     """A DeviceBuffer takes no window or stride (the JAX package ignores
-    them); the 'mesh' parameter takes only None."""
+    them); the 'mesh' parameter takes a parallel.mesh.Mesh or None."""
     pd = devices()[1]
     f = pd.new_filter("RT")
     buf = DeviceBuffer(const(8, 8), device="cpu")
@@ -367,6 +367,11 @@ def test_device_buffer_refuses_window_and_mesh_refuses_devices():
         f.set("mesh", object())
     assert ei.value.code == OidnError.INVALID_ARGUMENT
     assert f.get("mesh") is None
+    from mygpuraytracer_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=("cpu", "cpu"))
+    f.set("mesh", mesh)
+    assert f.get("mesh") is mesh
 
 
 # ----------------------------------------------------------------------------

@@ -78,7 +78,15 @@ def test_scan_covers_the_mesh_path():
                    "mygpuraytracer_tpu_torch.apps.preprocess",
                    "mygpuraytracer_tpu_torch.apps.compare_image",
                    "mygpuraytracer_tpu_torch.apps.visualize",
-                   "mygpuraytracer_tpu_torch.apps.train_denoiser"):
+                   "mygpuraytracer_tpu_torch.apps.train_denoiser",
+                   "mygpuraytracer_tpu_torch.parallel", "mygpuraytracer_tpu_torch.parallel.mesh",
+                   "mygpuraytracer_tpu_torch.parallel.sharded",
+                   "mygpuraytracer_tpu_torch.apps.preview",
+                   "mygpuraytracer_tpu_torch.apps.convert_image",
+                   "mygpuraytracer_tpu_torch.apps.split_exr",
+                   "mygpuraytracer_tpu_torch.utils.platform",
+                   "mygpuraytracer_tpu_torch.utils.profiling",
+                   "mygpuraytracer_tpu_torch.scene.writer", "mygpuraytracer_tpu_torch.bench"):
         assert module in MODULES
     for path in ("mygpuraytracer_tpu_torch/csrc/mesh_hit.cu",
                  "mygpuraytracer_tpu_torch/csrc/megakernel.cu",
@@ -137,6 +145,22 @@ def test_entry_points_default_to_cuda():
     assert _default(train, "mesh") is None
     assert preprocess.parse_args(["hdr"]).device == "cuda"
     assert train_denoiser.parse_args([]).device == "cuda"
+    from mygpuraytracer_tpu_torch import bench
+    from mygpuraytracer_tpu_torch.apps import preview
+    from mygpuraytracer_tpu_torch.parallel import make_mesh
+    from mygpuraytracer_tpu_torch.train.train import make_mesh as train_make_mesh
+
+    assert _default(preview.PreviewSession.__init__, "device") == "cuda"
+    assert preview.parse_args(["cornell"]).device == "cuda"
+    assert raytrace.parse_args(["cornell"]).multichip == "off"
+    for fn in (make_mesh, train_make_mesh):  # devices=None: every visible CUDA device
+        assert _default(fn, "devices") is None
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn()
+    if not torch.cuda.is_available():  # the bench's --device defaults to cuda
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench.main([])
 
 
 def test_chip_smoke_refuses_without_cuda():

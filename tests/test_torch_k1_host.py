@@ -99,14 +99,16 @@ def _scene(case, tmp_path):
     return dev, meta, RenderOptions(megakernel=True, **opts), start, iters, blocks_per_sm
 
 
-def _launch(lib, dev, meta, options, acc, start, iters, key, blocks_per_sm, stats=None):
+def _launch(lib, dev, meta, options, acc, start, iters, key, blocks_per_sm, stats=None,
+            pixels=None):
     width, height = meta.resolution
+    p0, count = pixels if pixels is not None else (0, width * height)
     record = megakernel.scene_record(meta, dev.camera)
     queue = torch.full((1,), 12345, dtype=torch.int32)  # the launch zeroes it
     err = lib.k1_accumulate(
         record.data_ptr(), acc.data_ptr(), queue.data_ptr(),
         stats.data_ptr() if stats is not None else None, meta.num_geoms, len(meta.mega_faces),
-        width * height, width, height, meta.trace_depth, start, iters, key[0], key[1],
+        width * height, p0, count, width, height, meta.trace_depth, start, iters, key[0], key[1],
         int(options.antialiasing), int(options.depth_of_field), options.lens_radius,
         options.focal_distance, THREADS, blocks_per_sm, None)
     assert err == 0
@@ -171,3 +173,54 @@ def test_host_k1_grids_and_counters(case, host_k1, tmp_path, monkeypatch):
     assert raygens / 32 <= raygen_rounds <= min(raygens, rounds)
     assert lanes // 32 <= atomics <= fetches + lanes
     assert 0 < tail < rounds and live <= 32 * rounds
+
+
+# Pixel ranges (p0, count) of the 24x24 image that tile it: a ragged split
+# (the queue runs dry mid-warp in each) and one of whole warps.
+RANGES = {"ragged": ((0, 101), (101, 250), (351, 225)), "warps": ((0, 288), (288, 288))}
+
+
+@pytest.mark.parametrize("split", list(RANGES))
+@pytest.mark.parametrize("case", ["cornellGlass", "dof", "glassFrom4"])
+def test_host_k1_pixel_ranges(case, split, host_k1, tmp_path):
+    """A range launch equals the plain version over the same range bit for
+    bit on the color, and launches over ranges that tile [0, N) put
+    together equal the whole launch bit for bit, AOVs included."""
+    dev, meta, options, start, iters, blocks_per_sm = _scene(case, tmp_path)
+    key = rng.make_key(7)
+    n = meta.resolution[0] * meta.resolution[1]
+    assert sum(c for _, c in RANGES[split]) == n
+    init = torch.rand((9, n), generator=torch.Generator().manual_seed(5))
+    whole = init.clone()
+    _launch(host_k1, dev, meta, options, whole, start, iters, key, blocks_per_sm)
+    pieces = []
+    for p0, count in RANGES[split]:
+        acc_k = init[:, p0:p0 + count].contiguous()
+        acc_p = acc_k.clone()
+        fetched = _launch(host_k1, dev, meta, options, acc_k, start, iters, key, blocks_per_sm,
+                          pixels=(p0, count))
+        assert fetched >= count
+        megakernel.megakernel_accumulate_reference(dev, meta, options, acc_p, start, iters, key,
+                                                   pixels=(p0, count))
+        assert torch.equal(acc_k[0:3], acc_p[0:3])
+        assert float((acc_k[3:9] - acc_p[3:9]).abs().max()) < 1e-5
+        pieces.append(acc_k)
+    assert torch.equal(torch.cat(pieces, dim=1), whole)
+
+
+def test_host_k1_refuses_a_range_outside_the_image(host_k1, tmp_path):
+    dev, meta, options, start, iters, _ = _scene("cornell", tmp_path)
+    n = meta.resolution[0] * meta.resolution[1]
+    record = megakernel.scene_record(meta, dev.camera)
+    acc = torch.zeros((9, 8))
+    queue = torch.zeros(1, dtype=torch.int32)
+    w, h = meta.resolution
+    for p0, count in ((n - 4, 8), (-1, 8)):
+        err = host_k1.k1_accumulate(
+            record.data_ptr(), acc.data_ptr(), queue.data_ptr(), None, meta.num_geoms,
+            len(meta.mega_faces), n, p0, count, w, h, meta.trace_depth, 1, 1, 0, 1, 1, 0, 0.0,
+            1.0, THREADS, 0, None)
+        assert err != 0
+    with pytest.raises(ValueError, match="pixel range"):
+        megakernel.megakernel_accumulate_reference(dev, meta, options, acc, 1, 1,
+                                                   rng.make_key(0), pixels=(n - 4, 8))

@@ -292,9 +292,9 @@ def _scene(name, res):
 def _with_miss_row(generate):
     """generate_camera_rays whose first image row points away from the
     scene (+z from the camera, out of the box's open side)."""
-    def wrapped(cam, resolution, options, uniforms):
-        o, d = generate(cam, resolution, options, uniforms)
-        row = torch.arange(o.x.shape[0]) < resolution[0]
+    def wrapped(cam, resolution, options, uniforms, p0=0):
+        o, d = generate(cam, resolution, options, uniforms, p0=p0)
+        row = torch.arange(p0, p0 + o.x.shape[0]) < resolution[0]
         away = Vec3(torch.where(row, 0.0, d.x), torch.where(row, 0.0, d.y),
                     torch.where(row, 1.0, d.z))
         return o, away
@@ -357,7 +357,7 @@ def test_host_build_of_k5_matches_plain(scene, mode, res, host_k5, monkeypatch):
         err = host_k5.k5_bounce(
             rays.data_ptr(), record.data_ptr(), dev.face_gather.data_ptr(),
             dev.cluster_tree.data_ptr(), acc_k.data_ptr(), visits.data_ptr(), stats.data_ptr(),
-            n, DEPTH, it, int(mode == "pallas"), ikey[0], ikey[1], seed, bounds.shape[1],
+            n, 0, n, DEPTH, it, int(mode == "pallas"), ikey[0], ikey[1], seed, bounds.shape[1],
             megakernel.tree_depth(bounds.shape[1]), None)
         assert err == 0
     differ = (acc_k[0:3] != acc_p[0:3]).any(dim=0).nonzero().squeeze(1)
@@ -388,5 +388,93 @@ def test_host_build_of_k5_matches_plain(scene, mode, res, host_k5, monkeypatch):
 def test_host_build_of_k6_matches_plain(seed, k, host_k6):
     n = 2048 + 333
     out = torch.full((k, n), float("nan"))
-    assert host_k6.k6_uniforms(seed, out.data_ptr(), k, n, None) == 0
+    assert host_k6.k6_uniforms(seed, out.data_ptr(), k, n, 0, None) == 0
     assert torch.equal(out, prng.uniforms_reference(seed, k, n))
+
+
+# Pixel ranges (p0, count) that tile the 23x23 image: ragged blocks of 64
+# threads in every piece, and one piece that starts mid-block.
+K5_RANGES = ((0, 100), (100, 333), (433, 96))
+
+
+@pytest.mark.parametrize("mode", ["threefry", "pallas"])
+def test_host_k5_pixel_ranges(mode, host_k5):
+    """Launches over ranges that tile [0, N) put together equal the whole
+    launch bit for bit, AOVs and visits included; the plain version over
+    each range equals the same columns of its whole-image run bit for bit;
+    so a range launch differs from its plain range (on the color, or on the
+    AOVs by 1e-5 or more) exactly where the whole launch differs from the
+    whole plain run: at the few exact-t ties that
+    test_host_build_of_k5_matches_plain traces."""
+    res = 23
+    dev, meta = _scene("cornellShip", res)
+    options = RenderOptions(megakernel=True, bounce_megakernel=True, rng="auto")
+    n = res * res
+    assert sum(c for _, c in K5_RANGES) == n
+    key = rng.make_key(3)
+    record = megakernel.scene_record(meta, dev.camera)
+    bounds = dev.cluster_bounds
+    init = torch.rand((9, n), generator=torch.Generator().manual_seed(4))
+
+    def launch(acc, visits, it, p0, count):
+        ikey = rng.iteration_key(key, it)
+        seed = rng.randint(ikey)
+        U = (prng.uniforms_reference(seed, 4, count, col0=p0) if mode == "pallas"
+             else rng.uniform_columns(ikey, 4, n, p0, count))
+        o, d = pathtrace.generate_camera_rays(dev.camera, meta.resolution, options, U, p0=p0)
+        rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z]).contiguous()
+        err = host_k5.k5_bounce(
+            rays.data_ptr(), record.data_ptr(), dev.face_gather.data_ptr(),
+            dev.cluster_tree.data_ptr(), acc.data_ptr(), visits.data_ptr(), None, n, p0, count,
+            DEPTH, it, int(mode == "pallas"), ikey[0], ikey[1], seed, bounds.shape[1],
+            megakernel.tree_depth(bounds.shape[1]), None)
+        assert err == 0
+
+    def plain(acc, p0, count):
+        if mode == "threefry":  # the CPU's stream: the wrapper's own plain version
+            return megakernel.bvh_bounce_accumulate_reference(
+                dev, meta, options, acc, 1, ITERS, key, pixels=(p0, count))
+        # K6's stream, which the CPU does not select: the same steps with its numbers
+        everyone = torch.ones(count, dtype=torch.bool)
+        query = lambda o, d, active=None: trace.bvh_scene_hit_nearfar(
+            meta, dev.face_plane, o, d, everyone if active is None else active, bounds)
+        for it in range(1, ITERS + 1):
+            U = prng.uniforms_reference(rng.randint(rng.iteration_key(key, it)),
+                                        pathtrace.num_rng_streams(DEPTH), count, col0=p0)
+            pathtrace.accumulate_sample(
+                acc, pathtrace.trace_sample(dev, meta, options, it, U, query, p0=p0), it)
+        return acc
+
+    whole, whole_visits, whole_p = init.clone(), torch.zeros(n, dtype=torch.int32), init.clone()
+    for it in range(1, ITERS + 1):
+        launch(whole, whole_visits, it, 0, n)
+    plain(whole_p, 0, n)
+    differs = lambda a, b: ((a[0:3] != b[0:3]).any(dim=0)
+                            | ((a[3:9] - b[3:9]).abs() >= 1e-5).any(dim=0))
+    whole_differ = differs(whole, whole_p)
+    assert int(whole_differ.sum()) <= n // 50  # a few exact-t ties, no more
+    pieces, piece_visits = [], []
+    for p0, count in K5_RANGES:
+        acc_k = init[:, p0:p0 + count].contiguous()
+        acc_p = acc_k.clone()
+        visits = torch.zeros(count, dtype=torch.int32)
+        for it in range(1, ITERS + 1):
+            launch(acc_k, visits, it, p0, count)
+        plain(acc_p, p0, count)
+        assert torch.equal(acc_p, whole_p[:, p0:p0 + count])
+        assert torch.equal(differs(acc_k, acc_p), whole_differ[p0:p0 + count])
+        pieces.append(acc_k)
+        piece_visits.append(visits)
+    assert torch.equal(torch.cat(pieces, dim=1), whole)
+    assert torch.equal(torch.cat(piece_visits), whole_visits)
+
+
+@pytest.mark.parametrize("col0", [1, 2047, 5000])
+def test_host_build_of_k6_column_range(col0, host_k6):
+    """K6 over columns col0 .. col0 + n - 1 equals those columns of the
+    whole block bit for bit, across 2048-column stream words."""
+    k, n = 7, 1500
+    out = torch.full((k, n), float("nan"))
+    assert host_k6.k6_uniforms(11, out.data_ptr(), k, n, col0, None) == 0
+    assert torch.equal(out, prng.uniforms_reference(11, k, col0 + n)[:, col0:])
+    assert torch.equal(out, prng.uniforms_reference(11, k, n, col0=col0))

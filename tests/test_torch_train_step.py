@@ -185,11 +185,13 @@ def test_eval_step_matches_jax():
 
 
 def test_mesh_other_than_none_raises():
+    """A mesh is a parallel.mesh.Mesh (tests/test_torch_train_mesh.py runs
+    one); anything else that is not None raises."""
     from mygpuraytracer_tpu_torch.train.train import build_train_step, train
 
-    with pytest.raises(NotImplementedError, match="mesh must be None"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh or None"):
         build_eval_step(TrainConfig(), mesh="dp")
-    with pytest.raises(NotImplementedError, match="mesh must be None"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh or None"):
         build_train_step(TrainConfig(), None, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh must be None"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh or None"):
         train(TrainConfig(), mesh=1, device="cpu")
