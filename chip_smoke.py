@@ -43,8 +43,11 @@ each printing one line with its elapsed seconds:
                   per ray necessary visits <= the kernel's <= the clusters
                   entered below t_cap
 6. mesh_render -- the mesh main path: render_denoised of cornellShipTex and
-                  cornellShip with the kernel's launches counted, the lists
-                  and conds tiers likewise, kernel against plain-tier images,
+                  cornellShip with the kernel's launches counted on the
+                  card (depth launches per iteration: each launch adds to
+                  a count kept on the device, which a graph's replays move
+                  too), the lists and conds tiers likewise, kernel
+                  against plain-tier images (the plain tier eager),
                   the oct winner table's image against f32's (recorded);
                   then the kernel timed with CUDA events at each block size
                   of the sweep, with the necessary, plain and kernel visits
@@ -61,12 +64,25 @@ each printing one line with its elapsed seconds:
                   options, bitwise, with K2's launches per iteration equal;
                   the first-bounce cache on and off (AA off) on both scenes,
                   bitwise, with the bounce-0 queries and K2 launches
-                  counted; the dir AOV's bounds (K1 not launched under
-                  megakernel=True) and the directional RTLightmap filter on
-                  it; move_camera against a fresh Renderer (K1); the
-                  benchmark app (apps/benchmark.py --mode all --json) in a
-                  subprocess, 13 entries
-8. prng        -- K6 against its plain version bit for bit at [4, N] and
+                  counted (eager: it counts Python calls); the dir AOV's
+                  bounds (K1 not launched under megakernel=True) and the
+                  directional RTLightmap filter on it; move_camera against
+                  a fresh Renderer (K1); the benchmark app
+                  (apps/benchmark.py --mode all --json) in a subprocess, 13
+                  entries
+8. graph      -- the Renderer's CUDA graphs (render/graphs.py) against its
+                  eager route (graphs.disabled()), bitwise on the
+                  accumulators: cornellShipTex under the app's options, with
+                  the first-bounce cache, BASELINE config #3 in each sort form
+                  and unsorted (4 iterations each after iteration 1), and
+                  cornellShip through K5 (16); per case ms per iteration both
+                  ways, capture seconds, graph-pool MiB and, under
+                  torch.profiler, kernels, host kernel and graph launches per
+                  iteration and the device-busy share; the syncs of one eager
+                  iteration (none allowed); step_many(16) after iteration 1
+                  with torch.cuda.set_sync_debug_mode("error"); move_camera
+                  then 2 iterations against a fresh Renderer, bitwise
+9. prng        -- K6 against its plain version bit for bit at [4, N] and
                   [28, N] for three seeds; its values on the 2^-24 grid with
                   U[0,1)'s mean and variance; K6 timed beside torch.rand in
                   turns under three yardsticks: one call at a time (the
@@ -74,13 +90,14 @@ each printing one line with its elapsed seconds:
                   included), bursts of back-to-back calls, and the device
                   time of calls queued behind other work (the kernel alone);
                   at [4, N] the host cost per call of the wrapper's pieces
-9. k5_parity   -- K5 against its plain version (the wavefront over the plain
+10. k5_parity   -- K5 against its plain version (the wavefront over the plain
                   walk) on the main path's inputs: cornellShip and the
                   open-sky shipOnly at 800x800, depth 8, seed 0, its first 2
                   iterations, under rng "threefry" and "auto"
-10. bounce_render -- the K5 main path: Renderer(megakernel, bounce_megakernel,
+11. bounce_render -- the K5 main path: Renderer(megakernel, bounce_megakernel,
                   rng="auto").render_denoised of cornellShip with the K5 and
-                  K6 launches counted; one counting launch per iteration
+                  K6 launches counted on the card, one each per iteration;
+                  one counting launch per iteration
                   (cluster visits, tree nodes, warp traversal iterations,
                   warp bounce rounds, lanes of ended paths: nodes per
                   ray-bounce, the traversal's lane use, the ended paths'
@@ -89,9 +106,9 @@ each printing one line with its elapsed seconds:
                   visits' beside it); two iterations under torch.profiler; its
                   image against the wavefront's (mesh kernel, same rng)
                   over 4 iterations
-11. denoise    -- the fused denoise (bf16 net) against the float32 net on the
+12. denoise    -- the fused denoise (bf16 net) against the float32 net on the
                   card, and the float32 net on the card against the CPU
-12. filter     -- the OIDN-style Filter API (denoise/filter.py) on the card:
+13. filter     -- the OIDN-style Filter API (denoise/filter.py) on the card:
                   Filter("RT") on the Cornell render's host beauty and albedo,
                   as the raytrace app calls it, against the fused denoise;
                   the single pass against the monitored per-tile path at
@@ -104,13 +121,13 @@ each printing one line with its elapsed seconds:
                   CLI (`python -m mygpuraytracer_tpu_torch.apps.denoise`) on
                   the render's PFMs, plain, in place with --maxmem 0, and
                   with -r against that output
-13. app        -- `python -m mygpuraytracer_tpu_torch.apps.raytrace` in a
+14. app        -- `python -m mygpuraytracer_tpu_torch.apps.raytrace` in a
                   subprocess on cornell and on cornellShipTex, each writing
                   its four PNGs into a temporary directory and denoising
                   through Filter("RT") (its "Denoise: device=... filter=...
                   exec=..." line), and on cornellShipTex with --no-antialias
                   --sort-by-material --save-normal (five PNGs)
-14. train      -- the denoiser's training toolkit (train/, the train_denoiser
+15. train      -- the denoiser's training toolkit (train/, the train_denoiser
                   app): a Cornell pair rendered by render_training_pairs at
                   256x256, 8 and 256 spp, through K1 (its launches counted);
                   one float32 step (TF32 off) on the card against the CPU and
@@ -127,7 +144,7 @@ each printing one line with its elapsed seconds:
                   scored by the compare_image app against the clean image; and
                   `python -m mygpuraytracer_tpu_torch.apps.train_denoiser` for
                   2 epochs in a subprocess
-15. multichip  -- parallel/ over the mesh ("cuda:0", "cuda:0"), the card named
+16. multichip  -- parallel/ over the mesh ("cuda:0", "cuda:0"), the card named
                   twice (the split, the per-device launches and the merge;
                   not scaling): Cornell 800x800, 32 iterations, in sample
                   mode (one K1 launch per device, one psum) against the
@@ -147,11 +164,11 @@ each printing one line with its elapsed seconds:
                   device's; the
                   raytrace app with --multichip sample and pixels, which on
                   one card logs the sequential path
-16. preview    -- apps/preview.py's session on Cornell 800x800 through K1:
+17. preview    -- apps/preview.py's session on Cornell 800x800 through K1:
                   frames over localhost, a camera move that restarts the
                   accumulation (resets, K1 launches counted), a save with the
                   denoise (3 PNGs)
-17. bench      -- `python -m mygpuraytracer_tpu_torch.bench` in a subprocess:
+18. bench      -- `python -m mygpuraytracer_tpu_torch.bench` in a subprocess:
                   its last JSON line has every key of bench.py, its
                   Msamples/s and ms values non-null
 
@@ -277,19 +294,26 @@ def time_kernels(root: str, repeats: int = 9, calls: int = 10) -> int:
 
 
 def kernel_instructions(root: str) -> dict:
-    """SASS instructions of the plain whole-image builds of K1 and K5 in
-    ``root``'s built libraries (sass_opcodes)."""
+    """SASS instructions of the plain whole-image, by-value builds of K1, K5
+    and K6 in ``root``'s built libraries (sass_opcodes)."""
     built = os.path.join(root, "mygpuraytracer_tpu_torch", "_build")
     out = {}
-    for lib, kernel in (("libmegakernel_", "k1_kernel"), ("libbounce_", "k5_kernel")):
+    for lib, kernel in (("libmegakernel_", "k1_kernel"), ("libbounce_", "k5_kernel"),
+                        ("libprng_", "k6_kernel")):
         path = max((os.path.join(built, f) for f in os.listdir(built) if f.startswith(lib)),
                    key=os.path.getmtime)
         counts = sass_opcodes(path)
-        # the plain build of a whole image: <false> before ranges, <false, false> since
-        plain = [k for k in counts if f"{kernel}ILb0E" in k]
-        name = next((k for k in plain if f"{kernel}ILb0ELb0E" in k), plain[0])
-        out[kernel] = sum(counts[name].values())
+        # the plain build: <false> before ranges, <false, false> since, <false,
+        # false, false> with K5's words; K6 untemplated before its words
+        out[kernel] = sum(counts[plain_build(counts, kernel)].values())
     return out
+
+
+def plain_build(counts: dict, kernel: str) -> str:
+    """The symbol of ``kernel``'s plain build (every template flag false)."""
+    names = [k for k in counts if re.search(rf"\d{kernel}(E|I)", k)]
+    falses = lambda k: k.count("Lb0E") if "Lb1E" not in k else -1
+    return max(names, key=falses)
 
 
 def ab_main(argv) -> int:
@@ -344,7 +368,7 @@ from mygpuraytracer_tpu_torch.ops import mesh_hit as mh
 from mygpuraytracer_tpu_torch.ops import prng, rng, trace
 from mygpuraytracer_tpu_torch.ops.trace import intersect_soa
 from mygpuraytracer_tpu_torch.ops.vec3 import Vec3
-from mygpuraytracer_tpu_torch.render import Renderer, megakernel, pathtrace
+from mygpuraytracer_tpu_torch.render import Renderer, graphs, megakernel, pathtrace
 from mygpuraytracer_tpu_torch.render.camera import generate_camera_rays
 from mygpuraytracer_tpu_torch.render.denoise_fused import denoise_accumulator, load_denoiser
 from mygpuraytracer_tpu_torch.render.pathtrace import num_rng_streams, render_sample
@@ -503,6 +527,18 @@ SORT_IMPLS = ("fused", "perm", "argsort")
 OPTIONS_ITERS = 16  # cornell_dof_cache_sort, dir_aov, move_camera
 OPTIONS_MESH_ITERS = 2  # cornellShipTex with the sort on and off
 CACHE_ITERS = 4  # the first-bounce cache on and off
+# Phase graph: the Renderer's CUDA graphs against its eager route
+# (graphs.disabled()), bitwise, at 800x800 depth 8: iterations 2 ..
+# GRAPH_ITERS + 1 timed per case (K5: GRAPH_K5_ITERS), the
+# profiled steps' iterations, and step_many under the sync debug mode.
+GRAPH_ITERS = 4
+GRAPH_K5_ITERS = 16
+GRAPH_PROFILE_ITERS = 2
+GRAPH_SYNC_ITERS = 16
+GRAPH_MOVE = [0.0, 5.0, 9.0]  # move_camera's position (cornellShipTex)
+# The host's launches in a profile: kernels one by one, graphs.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+GRAPH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 # dir_image's bounds (tests/test_dir_aov.py): normalized mean directions,
 # and a direction on more than this share of the Cornell box's pixels.
 DIR_NORM_MAX = 1.0 + 1e-5
@@ -650,9 +686,15 @@ def sass_draw_counts() -> dict:
         probe = sass_int_counts(build_probe(DRAW_PROBE, d))
     per = lambda kind: (pick(probe, f"probe_{kind}ILi16")[0] - pick(probe, f"probe_{kind}ILi8")[0]) / 8
     k6_lib = next(p for p in _build.build() if os.path.basename(p).startswith("libprng_"))
-    k6_int, k6_all = pick(sass_int_counts(k6_lib), "k6_kernel")
+    k6 = sass_int_counts(k6_lib)
+    k6_int, k6_all = k6[plain_build(k6, "k6_kernel")]
+    k5_lib = next(p for p in _build.build() if os.path.basename(p).startswith("libbounce_"))
+    k5 = sass_int_counts(k5_lib)
     return {"threefry_int_per_draw": per("threefry"), "philox_int_per_call": per("philox"),
-            "k6_kernel_int": k6_int, "k6_kernel_instructions": k6_all}
+            "k6_kernel_int": k6_int, "k6_kernel_instructions": k6_all,
+            "k6_words_instructions": pick(k6, "k6_kernelILb1E")[1],
+            "k5_kernel_instructions": k5[plain_build(k5, "k5_kernel")][1],
+            "k5_words_instructions": pick(k5, "k5_kernelILb0ELb0ELb1E")[1]}
 
 
 # Probes of the scene record's reads, built with the kernels' flags and
@@ -1276,9 +1318,9 @@ def filter_phase(dev: Device, beauty: np.ndarray, albedo: np.ndarray,
 
 def timed_iterations(r: Renderer, iters: int) -> float:
     """ms per iteration of ``r.step_many(iters)`` from a reset, by CUDA
-    events, after one warm-up iteration (the accumulators then hold the
-    timed run's ``iters`` iterations)."""
-    r.step()
+    events, after two warm-up iterations (the second captures the graph)
+    (the accumulators then hold the timed run's ``iters`` iterations)."""
+    r.step_many(2)
     r.reset()
     return cuda_ms(lambda: r.step_many(iters)) / iters
 
@@ -1329,6 +1371,51 @@ def require_equal(case: str, a: torch.Tensor, b: torch.Tensor, **labels) -> None
     raise AssertionError(f"{case}: {labels} differs from the reference run")
 
 
+def first_bounce_cache_case(device, scene) -> None:
+    """The first-bounce cache on and off (AA off) on the Cornell box and
+    cornellShipTex: bitwise, one bounce-0 query per reset with it, one per
+    iteration without; K2's launches one fewer per later iteration."""
+    for name in ("cornell", "cornellShipTex"):
+        cache_runs = {}
+        for cache in (True, False):
+            if name == "cornell":
+                r = Renderer(scene(), RenderOptions(antialiasing=False, megakernel=False,
+                                                    cache_first_bounce=cache),
+                             seed=SEED, device=device)
+            else:
+                r = Renderer(mesh_scene(name), app_options(antialiasing=False,
+                                                            cache_first_bounce=cache),
+                             seed=SEED, device=device)
+            if r.use_megakernel or r.options.first_bounce_cache_active != cache:
+                raise AssertionError(f"first_bounce_cache: unexpected route {r.options}")
+            r.step()
+            r.reset()
+            launches, times = [], []
+            with counting_bounce0_queries() as queries:
+                for _ in range(CACHE_ITERS):
+                    mh.LAUNCHES = 0
+                    times.append(cuda_ms(r.step))
+                    launches.append(mh.LAUNCHES)
+            cache_runs[cache] = (queries[0], launches, times, r.acc.clone())
+        require_equal("first_bounce_cache", cache_runs[True][3], cache_runs[False][3], scene=name)
+        for cache in (True, False):
+            queries, launches, times, _ = cache_runs[cache]
+            phase("options", case="first_bounce_cache", scene=name,
+                  cache="on" if cache else "off", iterations=CACHE_ITERS,
+                  bounce0_queries=queries, k2_launches_per_iter="/".join(map(str, launches)),
+                  ms_per_iter_first=f"{times[0]:.1f}",
+                  ms_per_iter_later=f"{np.mean(times[1:]):.1f}", bitwise_vs_off=True)
+        (q_on, l_on, _, _), (q_off, l_off, _, _) = cache_runs[True], cache_runs[False]
+        if (q_on, q_off) != (1, CACHE_ITERS):
+            raise AssertionError(f"first_bounce_cache {name}: {q_on} bounce-0 queries with the "
+                                 f"cache, {q_off} without, over {CACHE_ITERS} iterations")
+        if name == "cornellShipTex" and not (
+                l_on[0] == l_off[0] > 0
+                and all(a == b - 1 for a, b in zip(l_on[1:], l_off[1:]))):
+            raise AssertionError(f"first_bounce_cache: K2 launches {l_on} with the cache, "
+                                 f"{l_off} without")
+
+
 def options_phase(device) -> None:
     """The wavefront's options and the Renderer surface on the card: the
     material sort (each form) and the first-bounce cache bitwise against the
@@ -1376,11 +1463,12 @@ def options_phase(device) -> None:
                                 r.options.winner_table) != ("rows", "need", "oct"):
             raise AssertionError(f"cornellShipTex_sort: unexpected route {r.options}")
         with patched(trace, "mesh_intersect_soa", refuse):
-            r.step()
+            r.step_many(2)  # the warm-up and the capture
             r.reset()
-            mh.LAUNCHES = 0
+            _build.zero_launches_on_device()
             ms = cuda_ms(lambda: r.step_many(OPTIONS_MESH_ITERS)) / OPTIONS_MESH_ITERS
-            ship[sort] = (ms, mh.LAUNCHES / OPTIONS_MESH_ITERS, r.acc.clone(), r)
+            ship[sort] = (ms, _build.launches_on_device("mesh_hit") / OPTIONS_MESH_ITERS,
+                          r.acc.clone(), r)
     require_equal("cornellShipTex_sort", ship[True][2], ship[False][2], sort_impl="fused")
     if ship[True][1] != ship[False][1] or ship[True][1] <= 0:
         raise AssertionError(f"cornellShipTex_sort: K2 launches per iteration {ship[True][1]} "
@@ -1400,46 +1488,12 @@ def options_phase(device) -> None:
               gather_ms_per_iter=f"{device_ms(events, 'gather', 'index'):.2f}")
 
     # ---- case=first_bounce_cache: AA and DoF off, the cache on and off ----
-    for name in ("cornell", "cornellShipTex"):
-        cache_runs = {}
-        for cache in (True, False):
-            if name == "cornell":
-                r = Renderer(scene(), RenderOptions(antialiasing=False, megakernel=False,
-                                                    cache_first_bounce=cache),
-                             seed=SEED, device=device)
-            else:
-                r = Renderer(mesh_scene(name), app_options(antialiasing=False,
-                                                            cache_first_bounce=cache),
-                             seed=SEED, device=device)
-            if r.use_megakernel or r.options.first_bounce_cache_active != cache:
-                raise AssertionError(f"first_bounce_cache: unexpected route {r.options}")
-            r.step()
-            r.reset()
-            launches, times = [], []
-            with counting_bounce0_queries() as queries:
-                for _ in range(CACHE_ITERS):
-                    mh.LAUNCHES = 0
-                    times.append(cuda_ms(r.step))
-                    launches.append(mh.LAUNCHES)
-            cache_runs[cache] = (queries[0], launches, times, r.acc.clone())
-        require_equal("first_bounce_cache", cache_runs[True][3], cache_runs[False][3], scene=name)
-        for cache in (True, False):
-            queries, launches, times, _ = cache_runs[cache]
-            phase("options", case="first_bounce_cache", scene=name,
-                  cache="on" if cache else "off", iterations=CACHE_ITERS,
-                  bounce0_queries=queries, k2_launches_per_iter="/".join(map(str, launches)),
-                  ms_per_iter_first=f"{times[0]:.1f}",
-                  ms_per_iter_later=f"{np.mean(times[1:]):.1f}", bitwise_vs_off=True)
-        (q_on, l_on, _, _), (q_off, l_off, _, _) = cache_runs[True], cache_runs[False]
-        if (q_on, q_off) != (1, CACHE_ITERS):
-            raise AssertionError(f"first_bounce_cache {name}: {q_on} bounce-0 queries with the "
-                                 f"cache, {q_off} without, over {CACHE_ITERS} iterations")
-        if name == "cornellShipTex" and not (
-                l_on[0] == l_off[0] > 0
-                and all(a == b - 1 for a, b in zip(l_on[1:], l_off[1:]))):
-            raise AssertionError(f"first_bounce_cache: K2 launches {l_on} with the cache, "
-                                 f"{l_off} without")
+    # It counts the Python calls of the bounce-0 query, which a graph's
+    # replay does not make: eager (graph against eager: phase graph).
+    with graphs.disabled():
+        first_bounce_cache_case(device, scene)
 
+    # ---- case=dir_aov: the wavefront's dir AOV; the megakernel route skipped ----
     # ---- case=dir_aov: the wavefront's dir AOV; the megakernel route skipped ----
     dir_runs = {}
     for mega in (False, True):
@@ -1506,6 +1560,164 @@ def options_phase(device) -> None:
     phase("options", case="benchmark_app", **{f"{k}_ms": v for k, v in denoise.items()})
     if len(results) != BENCH_ENTRIES or len(render) != 4 or len(denoise) != 9:
         raise AssertionError(f"benchmark app printed {len(results)} entries: {results}")
+
+
+def graph_pool_mib(r: Renderer) -> float | None:
+    """MiB of the caching allocator's segments in ``r``'s graph pool (None:
+    this PyTorch's snapshot names no pools)."""
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0] or r._graph_pool is None:
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) == tuple(r._graph_pool)) / 2**20
+
+
+def profiled_steps(r: Renderer, iters: int) -> dict:
+    """``r.step_many(iters)`` under torch.profiler (the CPU and the card),
+    per iteration: wall ms, device-busy ms and share, kernels on the card,
+    the host's kernel launches and graph launches."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        r.step_many(iters)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    events = prof.key_averages()
+    on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_card) / 1e3
+    calls = lambda names: sum(e.count for e in events if e.key in names)
+    return dict(wall_ms=wall / iters, busy_ms=busy / iters, busy_share=busy / wall,
+                kernels=sum(e.count for e in on_card) / iters,
+                host_kernel_launches=calls(LAUNCH_CALLS) / iters,
+                host_graph_launches=calls(GRAPH_CALLS) / iters)
+
+
+def graph_phase(device) -> None:
+    """The Renderer's CUDA graphs (render/graphs.py) against its eager
+    route (``graphs.disabled()``) at 800x800, depth 8: bitwise on the
+    accumulators, ms per iteration, profiled launches and device-busy share,
+    capture seconds and graph-pool MiB; the syncs of an eager iteration;
+    step_many under the sync debug mode's "error"; move_camera against a
+    fresh Renderer."""
+    bounce = RenderOptions(megakernel=True, bounce_megakernel=True, rng="auto")
+    cases = {"cornellShipTex": (lambda: mesh_scene("cornellShipTex"), app_options(),
+                                "wavefront", GRAPH_ITERS),
+             "cornellShipTex_cache": (lambda: mesh_scene("cornellShipTex"),
+                                      app_options(antialiasing=False), "wavefront", GRAPH_ITERS),
+             **{f"baseline3_{impl or 'unsorted'}": (
+                 lambda: cornell_box(resolution=(RES, RES), depth=DEPTH),
+                 RenderOptions(**(dict(BASELINE3, sort_impl=impl) if impl
+                                  else dict(BASELINE3, sort_by_material=False))),
+                 "wavefront", GRAPH_ITERS) for impl in (None, *SORT_IMPLS)},
+             "shipTexOnly": (lambda: mesh_scene("shipTexOnly"), app_options(), "wavefront",
+                             GRAPH_ITERS),
+             "cornellShip_k5": (lambda: mesh_scene("cornellShip"), bounce, "k5",
+                                GRAPH_K5_ITERS)}
+    kept = {}
+    for name, (make, opts, route, iters) in cases.items():
+        runs = {}
+        for label in ("eager", "graph"):
+            r = Renderer(make(), opts, seed=SEED, device=device)
+            if r.graph_route != route or (name.endswith("cache")
+                                          != r.options.first_bounce_cache_active):
+                raise AssertionError(f"graph {name}: route {r.graph_route}, {r.options}")
+            with graphs.disabled() if label == "eager" else contextlib.nullcontext():
+                r.step_many(1 + iters)  # the warm-up, and the graphs the timed run replays
+                r.reset()
+                r.step()
+                ms = cuda_ms(lambda: r.step_many(iters)) / iters
+                acc = r.acc.clone()
+                prof = profiled_steps(r, iters if route == "k5" else GRAPH_PROFILE_ITERS)
+            runs[label] = dict(ms=ms, acc=acc, prof=prof, r=r)
+        g, e = runs["graph"], runs["eager"]
+        require_equal(f"graph_{name}", g["acc"], e["acc"], route="graph_vs_eager")
+        pool = graph_pool_mib(g["r"])
+        phase("graph", case=name, route=route, iterations=iters,
+              eager_ms_per_iter=f"{e['ms']:.2f}", graph_ms_per_iter=f"{g['ms']:.2f}", speedup=f"{e['ms'] / g['ms']:.2f}",
+              bitwise_vs_eager=True, capture_s=f"{g['r'].graph.seconds:.3f}",
+              pool_mib="not measured" if pool is None else f"{pool:.1f}")
+        for label in ("eager", "graph"):
+            p = runs[label]["prof"]
+            phase("graph", case=name, profile=label, wall_ms_per_iter=f"{p['wall_ms']:.2f}",
+                  device_busy_ms_per_iter=f"{p['busy_ms']:.2f}",
+                  device_busy_share=f"{p['busy_share']:.3f}",
+                  kernels_per_iter=f"{p['kernels']:.0f}",
+                  host_kernel_launches_per_iter=f"{p['host_kernel_launches']:.1f}",
+                  host_graph_launches_per_iter=f"{p['host_graph_launches']:.3f}")
+        if name in ("cornellShipTex", "cornellShip_k5"):
+            kept[name] = g["r"]
+        del runs
+
+    # The bounces that now run with no live lane, which the host guard
+    # skipped: live lanes per bounce of the open-sky shipTexOnly's
+    # iterations 1-2 (eager, counted with a host read per bounce).
+    live = []
+
+    def census(meta, dev, state, hit, *u):
+        live.append(int((state.remaining > 0).sum()))
+        return shade(meta, dev, state, hit, *u)
+
+    r = Renderer(mesh_scene("shipTexOnly"), app_options(), seed=SEED, device=device)
+    with graphs.disabled(), patched(pathtrace, "shade_soa", census) as shade:
+        r.step_many(2)
+    phase("graph", check="live_lanes_per_bounce", scene="shipTexOnly", iterations=2,
+          live="/".join(map(str, live)), bounces_with_no_live_lane=live.count(0))
+
+    # The syncs of one eager iteration after the first, listed (the capture
+    # would refuse any); then the graphs' step_many after iteration 1 with
+    # every sync an error.
+    r = Renderer(mesh_scene("cornellShipTex"), app_options(), seed=SEED, device=device)
+    with graphs.disabled():
+        r.step()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                r.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    # (the mode's own notice on being set is not a sync)
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    phase("graph", check="eager_iteration_syncs", scene="cornellShipTex", syncs=len(syncs),
+          first=repr(syncs[:3]))
+    if syncs:
+        raise AssertionError(f"an eager iteration syncs the host: {syncs[:5]}")
+    for name in ("cornellShipTex", "cornellShip_k5"):
+        r = kept[name]
+        r.reset()
+        r.step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t = time.perf_counter()
+            r.step_many(GRAPH_SYNC_ITERS)
+            host_ms = 1e3 * (time.perf_counter() - t)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        phase("graph", check="step_many_sync_debug_error", scene=name,
+              iterations=GRAPH_SYNC_ITERS, syncs=0,
+              host_ms_to_enqueue=f"{host_ms:.2f}", finite=bool(torch.isfinite(r.acc).all()))
+
+    # move_camera, then 2 iterations, against a fresh Renderer at that camera.
+    r = kept["cornellShipTex"]
+    r.reset()
+    r.step_many(3)
+    captured = r.graph
+    r.move_camera(position=GRAPH_MOVE)
+    r.step_many(2)
+    moved = mesh_scene("cornellShipTex")
+    moved.state.camera.position = np.asarray(GRAPH_MOVE, np.float32)
+    moved.state.camera.rebuild()
+    fresh = Renderer(moved, app_options(), seed=SEED, device=device)
+    fresh.step_many(2)
+    require_equal("graph_move_camera", r.acc, fresh.acc)
+    phase("graph", check="move_camera", scene="cornellShipTex",
+          position="/".join(f"{x:g}" for x in GRAPH_MOVE), iterations=2,
+          bitwise_vs_fresh=True, graph_kept=r.graph is captured)
 
 
 def one_train_step(cfg: TrainConfig, device, x: np.ndarray, y: np.ndarray, params: dict,
@@ -1805,8 +2017,9 @@ def multichip_phase(device) -> None:
     # master only through the copies' backward. The gradients' bars
     # (MESH_GRAD_REL, TRAIN_STEP_RTOL) are per loss and mesh: "l1" on the card
     # alone is held to the CPU tests' 1e-5; l1_msssim's float32 gradients
-    # shift with the order of their sums by more than that (its variance
-    # estimates cancel: tests/test_torch_train_mesh.py) and the card against
+    # shift with the order of their sums by more than that (JAX's float32
+    # SSIM gradient alone lies 1.6e-5 x from float64:
+    # tests/test_torch_train_grad_parity.py) and the card against
     # the CPU rounds its convolutions differently, so those take the card-
     # against-CPU bar of the loss, 1e-4. A dropped or mis-scaled shard moves
     # the gradients by a share of themselves.
@@ -1990,7 +2203,10 @@ def main() -> int:
           sass_philox_int_per_draw=SASS["philox_int_per_call"] / 4,
           sass_k6_kernel_int=SASS["k6_kernel_int"],
           sass_k6_kernel_int_per_draw=SASS["k6_kernel_int"] / 4,
-          sass_k6_kernel_instructions=SASS["k6_kernel_instructions"])
+          sass_k6_kernel_instructions=SASS["k6_kernel_instructions"],
+          sass_k6_words_instructions=SASS["k6_words_instructions"],
+          sass_k5_kernel_instructions=SASS["k5_kernel_instructions"],
+          sass_k5_words_instructions=SASS["k5_words_instructions"])
 
     # ---- k1_parity -------------------------------------------------------------
     options = RenderOptions(megakernel=True)
@@ -2029,12 +2245,14 @@ def main() -> int:
     if not renderer.use_megakernel:
         raise AssertionError("Renderer did not route the Cornell box to K1")
     megakernel.LAUNCHES = 0
+    _build.zero_launches_on_device()
     t = time.perf_counter()
     denoised, beauty = renderer.render_denoised(iterations=32, batch=16)
     main_path_s = time.perf_counter() - t
-    k1_launches = megakernel.LAUNCHES
-    if k1_launches < 1:
-        raise AssertionError("the main path launched K1 no time")
+    k1_launches = _build.launches_on_device("k1")  # counted on the card
+    if k1_launches < 1 or k1_launches != megakernel.LAUNCHES:
+        raise AssertionError(f"the main path launched K1 {k1_launches} times on the card, "
+                             f"{megakernel.LAUNCHES} from the host")
     if not (denoised.shape == (RES, RES, 3) and np.isfinite(denoised).all()
             and np.isfinite(beauty).all() and 0.0 <= denoised.min() and denoised.max() <= 1.0):
         raise AssertionError("denoised output is not a finite [0,1] 800x800x3 image")
@@ -2180,13 +2398,20 @@ def main() -> int:
         with counting(trace, "mesh_rows_hit") as queries, \
                 patched(trace, "mesh_intersect_soa", refuse):
             mh.LAUNCHES = 0
+            _build.zero_launches_on_device()
             t = time.perf_counter()
             denoised, beauty = r.render_denoised(iterations=MESH_ITERS, batch=16)
             wall_s = time.perf_counter() - t
-            m_launches = mh.LAUNCHES
-        if not (m_launches > 0 and m_launches == queries[0]):
-            raise AssertionError(f"{name}: {m_launches} kernel launches for {queries[0]} "
-                                 "mesh queries")
+            m_launches = _build.launches_on_device("mesh_hit")
+        # Every iteration queries the mesh DEPTH times (bounce 0 and each
+        # later bounce, live lanes or not), and every query launches the
+        # kernel: the launches counted on the card, iteration 1's and the
+        # replays', while the host's launches and the query's Python calls
+        # (queries) are iteration 1's and the capture's.
+        if not (m_launches == MESH_ITERS * DEPTH and queries[0] == mh.LAUNCHES == 2 * DEPTH):
+            raise AssertionError(f"{name}: {m_launches} kernel launches on the card over "
+                                 f"{MESH_ITERS} iterations, {mh.LAUNCHES} from the host, "
+                                 f"{queries[0]} Python calls of the query")
         if not (denoised.shape == (RES, RES, 3) and np.isfinite(denoised).all()
                 and np.isfinite(beauty).all() and beauty.mean() > 1e-3
                 and 0.0 <= denoised.min() and denoised.max() <= 1.0):
@@ -2210,22 +2435,24 @@ def main() -> int:
                      device=device)
         with counting(trace, fn) as queries, patched(trace, "mesh_intersect_soa", refuse), \
                 recording_mesh_queries() as tier_calls[tier]:
-            mh.LAUNCHES = 0
+            _build.zero_launches_on_device()
             img = r.render(iterations=MESH_TIER_ITERS)
-            mesh_launches[tier] = mh.LAUNCHES
-        if not (mesh_launches[tier] > 0 and mesh_launches[tier] == queries[0]
+            mesh_launches[tier] = _build.launches_on_device("mesh_hit")
+        if not (mesh_launches[tier] == MESH_TIER_ITERS * DEPTH and queries[0] == 2 * DEPTH
                 and np.isfinite(img).all()):
-            raise AssertionError(f"tier {tier}: {mesh_launches[tier]} launches for "
-                                 f"{queries[0]} queries")
+            raise AssertionError(f"tier {tier}: {mesh_launches[tier]} launches over "
+                                 f"{MESH_TIER_ITERS} iterations, {queries[0]} Python calls")
         phase("mesh_render", scene="cornellShipTex", tier=tier, iterations=MESH_TIER_ITERS,
               mesh_launches=mesh_launches[tier], mesh_queries=queries[0])
     # The same 4 iterations through the kernel and through the plain tier,
     # then through the kernel with the f32 winner table instead of oct.
+    # The plain tier selects with boolean masks (host syncs): eager.
     images = []
     for query, table in ((mh.mesh_hit, "auto"), (plain_mesh_hit, "auto"), (mh.mesh_hit, "f32")):
         r = Renderer(mesh_scene("cornellShipTex"), app_options(winner_table=table), seed=SEED,
                      device=device)
-        with patched(trace, "mesh_hit", query):
+        eager = graphs.disabled() if query is plain_mesh_hit else contextlib.nullcontext()
+        with patched(trace, "mesh_hit", query), eager:
             images.append(r.render(iterations=MESH_IMAGE_ITERS, batch=MESH_IMAGE_ITERS))
         if (table == "auto") != (r.options.winner_table == "oct"):
             raise AssertionError(f"winner table {r.options.winner_table} for {table!r}")
@@ -2255,7 +2482,7 @@ def main() -> int:
 
     # ---- mesh_profile: where the mesh main path's device time goes ------------------
     r = Renderer(mesh_scene("cornellShipTex"), app_options(), seed=SEED, device=device)
-    r.render(iterations=1)  # warm-up
+    r.render(iterations=2)  # warm-up: iteration 1 and the capture
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2279,6 +2506,9 @@ def main() -> int:
 
     # ---- options: the wavefront's render options and the Renderer surface ---------
     options_phase(device)
+
+    # ---- graph: the Renderer's CUDA graphs against its eager route ----------------
+    graph_phase(device)
 
     # ---- prng: K6 against its plain version ----------------------------------------
     n = RES * RES
@@ -2326,7 +2556,8 @@ def main() -> int:
             pieces = {"torch_rand": rand, "k6_wrapper": run_k6,
                       "torch_empty": lambda: torch.empty((k, n), dtype=torch.float32, device=device),
                       "stream_handle": lambda: _build.stream_handle(buf.device),
-                      "c_launch": lambda: k6_c(PRNG_SEEDS[1], buf.data_ptr(), k, n, 0, handle)}
+                      "c_launch": lambda: k6_c(PRNG_SEEDS[1], buf.data_ptr(), k, n, 0, 0, 0, None,
+                                               handle)}
             host = {name: [] for name in pieces}
             for _ in range(2):
                 for name, fn in pieces.items():
@@ -2401,13 +2632,15 @@ def main() -> int:
     if not (r.use_megakernel and megakernel._uses_bvh(r.meta)):
         raise AssertionError("Renderer did not route cornellShip to K5")
     with patched(trace, "mesh_intersect_soa", refuse):
-        megakernel.BOUNCE_LAUNCHES = prng.LAUNCHES = 0
+        _build.zero_launches_on_device()
         t = time.perf_counter()
         denoised, beauty = r.render_denoised(iterations=BOUNCE_ITERS, batch=16)
         wall_s = time.perf_counter() - t
-        k5_launches, k6_launches = megakernel.BOUNCE_LAUNCHES, prng.LAUNCHES
-    if k5_launches < 1 or k6_launches < 1:
-        raise AssertionError(f"the K5 path launched K5 {k5_launches} and K6 {k6_launches} times")
+        # counted on the card: iteration 1's launches and the replays'
+        k5_launches, k6_launches = (_build.launches_on_device(k) for k in ("k5", "k6"))
+    if not k5_launches == k6_launches == BOUNCE_ITERS:
+        raise AssertionError(f"the K5 path launched K5 {k5_launches} and K6 {k6_launches} times "
+                             f"over {BOUNCE_ITERS} iterations")
     if not (denoised.shape == (RES, RES, 3) and np.isfinite(denoised).all()
             and np.isfinite(beauty).all() and beauty.mean() > 1e-3
             and 0.0 <= denoised.min() and denoised.max() <= 1.0):
@@ -2442,8 +2675,16 @@ def main() -> int:
                                  stats)
     run_k5 = lambda: [megakernel.bounce_launch(dev, meta, bounce_options, acc, rays, it, ikey,
                                                record) for it, ikey, rays in all_rays]
-    run_k5()  # warm-up
-    k5_ms = float(np.median([cuda_ms(run_k5) for _ in range(3)])) / BOUNCE_ITERS
+    # The WORDS build, as the graph route launches it (its one-thread words
+    # kernel included), on the same rays, in turns with the by-value build.
+    counted = [torch.tensor(it, dtype=torch.int64, device=device) for it, _, _ in all_rays]
+    run_words = lambda: [megakernel.bounce_launch(dev, meta, bounce_options, acc, rays, c, None,
+                                                  record, base_key=r.base_key)
+                         for c, (_, _, rays) in zip(counted, all_rays)]
+    run_k5(), run_words()  # warm-up
+    turns = [(cuda_ms(run_k5), cuda_ms(run_words)) for _ in range(3)]
+    k5_ms = float(np.median([a for a, _ in turns])) / BOUNCE_ITERS
+    k5_words_ms = float(np.median([b for _, b in turns])) / BOUNCE_ITERS
     k5_plain_ms = k5_parity["cornellShip", "auto"]["plain_ms"]  # per iteration, the same inputs
     bounces, philox_calls, necessary, _ = ray_bounces(dev, meta, bounce_options,
                                                       range(1, BOUNCE_ITERS + 1))
@@ -2467,7 +2708,9 @@ def main() -> int:
     # moves; K5's own-visit bound is printed beside it.
     k5_bound_ms, k5_bound_by, fp_ops = k5_bound(necessary)
     own_bound_ms, _, own_fp_ops = k5_bound(cluster_visits)
-    phase("bounce_render", k5_ms_per_launch=f"{k5_ms:.3f}", plain_ms_per_iter=f"{k5_plain_ms:.1f}", ray_bounces=bounces,
+    phase("bounce_render", k5_ms_per_launch=f"{k5_ms:.3f}",
+          k5_words_ms_per_launch=f"{k5_words_ms:.3f}", plain_ms_per_iter=f"{k5_plain_ms:.1f}",
+          ray_bounces=bounces,
           bounces_per_sample=f"{bounces / (n * BOUNCE_ITERS):.3f}", cluster_visits=cluster_visits,
           visits_per_ray_bounce=f"{cluster_visits / max(bounces, 1):.3f}",
           necessary_visits=necessary,
@@ -2489,9 +2732,12 @@ def main() -> int:
             and 32 * rounds - ended >= n * BOUNCE_ITERS):
         raise AssertionError(f"K5's counters disagree: {cluster_visits} visits, {stats.tolist()}")
 
-    # Where the K5 path's device time goes: two iterations under the profiler.
+    # Where the K5 path's device time goes: two iterations under the profiler
+    # (replays of the graph that the warm-up captures).
     r.reset()
-    r.render(iterations=1)  # warm-up
+    r.render(iterations=1 + PROFILE_ITERS, batch=1 + PROFILE_ITERS)  # warm-up
+    r.reset()
+    r.render(iterations=1)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2639,7 +2885,8 @@ def main() -> int:
         "bound_by": k5_bound_by,
         "library_ms": None,
         "design": "per-ray cluster-tree walk, warp-tested leaves; a pixel range per launch (the "
-                  "pixel-sharded render); times of whole-image launches",
+                  "pixel-sharded render); in the Renderer's graph its words from device memory "
+                  "(WORDS build); times of whole-image by-value launches",
     })
     kernels.append({
         "name": "k6_uniforms",

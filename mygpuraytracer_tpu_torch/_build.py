@@ -45,10 +45,10 @@ SIGNATURES = {
     # csrc/mesh_hit.cu
     "mesh_hit": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # csrc/prng.cu
-    "k6_uniforms": (_I, [_I, _P, _I, _I, _I, _P]),
+    "k6_uniforms": (_I, [_I, _P, _I, _I, _I, _U, _U, _P, _P]),
     # csrc/bounce.cu
-    "k5_bounce": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I, _I,
-                       _P]),
+    "k5_bounce": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _I, _P, _P,
+                       _I, _I, _P]),
 }
 
 _lib = None
@@ -136,6 +136,41 @@ def stream_handle(device) -> int:
     import torch
 
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+# Launches counted on the device, per (kernel, device): an int64 scalar to
+# which each wrapper adds one on the launch's stream right after its launch,
+# so that the replays of a CUDA graph that recorded the launch add to it too
+# (render/graphs.py). The wrappers' own LAUNCHES count calls on the host.
+_on_device: dict = {}
+
+
+def count_on_device(kernel: str, device) -> None:
+    """Add one to ``kernel``'s launches counted on ``device``, on the
+    current stream."""
+    import torch
+
+    key = (kernel, torch.device(device))
+    count = _on_device.get(key)
+    if count is None:
+        if key[1].type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{kernel}'s first launch on {key[1]} is in a CUDA graph "
+                               "capture: its count would live in the graph's memory")
+        count = _on_device[key] = torch.zeros((), dtype=torch.int64, device=key[1])
+    count += 1
+
+
+def launches_on_device(kernel: str) -> int:
+    """``kernel``'s launches counted on the devices since
+    :func:`zero_launches_on_device` (reads them: a host sync)."""
+    return sum(int(count) for (name, _), count in _on_device.items() if name == kernel)
+
+
+def zero_launches_on_device() -> None:
+    """Set every launch count kept on a device to 0, in place (a graph that
+    adds to one keeps its address)."""
+    for count in _on_device.values():
+        count.zero_()
 
 
 def library() -> types.SimpleNamespace:

@@ -58,6 +58,11 @@
 // visits (visits x 128 x ~51 FP32 instructions); the accumulator is 9
 // planes of 4 B read and written once.
 //
+// The iteration's words (its key, K6's seed, its number) come by value or,
+// in the build with WORDS, from device memory, where a one-thread kernel
+// launched before it derives them from the base key and the iteration,
+// which it reads there (the capture route of render/graphs.py).
+//
 // Built by mygpuraytracer_tpu_torch/_build.py (nvcc, sm_90a); the C entry
 // point returns cudaGetLastError() after the launch.
 
@@ -91,13 +96,43 @@ struct Draws {
   }
 };
 
-template <bool COUNT, bool RANGE>
+// The WORDS build's words [4] = (the iteration's key word 0, word 1, K6's
+// seed, the iteration), each an int64: the iteration read from device
+// memory, *iteration_at, counted there by a CUDA graph (render/graphs.py),
+// where values baked into the launch would be the captured iteration's;
+// the rest derived from the base key (b0, b1) (path.cuh::iteration_words).
+// One thread, once per launch: derived in each of K5's threads, the words
+// stay live in registers through the bounce loop, which cost K5 occupancy.
+__global__ void k5_iteration_words(uint32_t b0, uint32_t b1,
+                                   const long long* __restrict__ iteration_at,
+                                   long long* __restrict__ words) {
+  const long long iteration = *iteration_at;
+  uint32_t k0, k1;
+  int32_t seed;
+  iteration_words(b0, b1, static_cast<uint32_t>(iteration), k0, k1, seed);
+  words[0] = k0;
+  words[1] = k1;
+  words[2] = seed;
+  words[3] = iteration;
+}
+
+// WORDS: the iteration's words are read from device memory (words, written
+// by k5_iteration_words), not taken by value. The by-value builds never read
+// ``words``.
+template <bool COUNT, bool RANGE, bool WORDS>
 __global__ void __launch_bounds__(THREADS)
     k5_kernel(const float* __restrict__ rays, const float* __restrict__ rec,
               const float4* __restrict__ faces, const float4* __restrict__ tree,
               float* __restrict__ acc, int* __restrict__ visits,
               unsigned long long* __restrict__ stats, int n, int p0, int pixels, int depth,
-              int iteration, int counter, uint32_t key0, uint32_t key1, int32_t seed) {
+              int iteration, int counter, uint32_t key0, uint32_t key1, int32_t seed,
+              const long long* __restrict__ words) {
+  if (WORDS) {
+    key0 = static_cast<uint32_t>(words[0]);
+    key1 = static_cast<uint32_t>(words[1]);
+    seed = static_cast<int32_t>(words[2]);
+    iteration = static_cast<int>(words[3]);
+  }
   const int p = blockIdx.x * blockDim.x + threadIdx.x;  // in the range
   const int lane = static_cast<int>(threadIdx.x) % WARP;
   // The range's length: the rows' stride. RANGE false is the whole image
@@ -183,23 +218,33 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
+// iteration_at, if not null, replaces iteration, (key0, key1) is then the
+// base key and seed is ignored: k5_iteration_words writes the iteration's
+// words into words (int64 [4], scratch), which the WORDS build reads (it
+// covers the whole image and counts nothing).
 extern "C" int k5_bounce(const float* rays, const float* rec, const float* face_gather,
                          const float* tree, float* acc, int* visits, unsigned long long* stats,
                          int n, int p0, int count, int depth, int iteration, int counter,
-                         uint32_t key0, uint32_t key1, int seed, int num_clusters,
-                         int tree_depth, void* stream) {
+                         uint32_t key0, uint32_t key1, int seed, const long long* iteration_at,
+                         long long* words, int num_clusters, int tree_depth, void* stream) {
   if (count <= 0) return 0;
+  const bool counting = visits != nullptr || stats != nullptr, range = p0 != 0 || count != n;
   if (num_clusters < 2 || tree_depth < 1 || tree_depth > MAX_STACK || p0 < 0 ||
-      p0 > n - count) {
+      p0 > n - count ||
+      (iteration_at != nullptr && (words == nullptr || counting || range))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (iteration_at != nullptr) {
+    k5_iteration_words<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(key0, key1, iteration_at,
+                                                                       words);
+  }
   const int blocks = (count + THREADS - 1) / THREADS;
-  const bool counting = visits != nullptr || stats != nullptr, range = p0 != 0 || count != n;
-  auto kernel = counting ? (range ? k5_kernel<true, true> : k5_kernel<true, false>)
-                         : (range ? k5_kernel<false, true> : k5_kernel<false, false>);
+  auto kernel = iteration_at != nullptr ? k5_kernel<false, false, true>
+                : counting ? (range ? k5_kernel<true, true, false> : k5_kernel<true, false, false>)
+                           : (range ? k5_kernel<false, true, false> : k5_kernel<false, false, false>);
   kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       rays, rec, reinterpret_cast<const float4*>(face_gather),
       reinterpret_cast<const float4*>(tree), acc, visits, stats, n, p0, count, depth, iteration,
-      counter, key0, key1, seed);
+      counter, key0, key1, seed, words);
   return static_cast<int>(cudaGetLastError());
 }

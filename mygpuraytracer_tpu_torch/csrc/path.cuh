@@ -119,6 +119,24 @@ struct Stream {
   }
 };
 
+// An iteration's words from the base key (b0, b1) and the iteration, as
+// ops/rng.py computes them on the host: its key fold_in(base, iteration)
+// and K6's seed randint(key) over [0, 2^31 - 1). randint reduces the first
+// draw under split(key) with the multiplier ((2^16 mod span)^2 mod 2^32)
+// mod span, which is 0 for this span, so the seed is the draw under the
+// second split key, element 0, mod the span.
+__device__ __forceinline__ void iteration_words(uint32_t b0, uint32_t b1, uint32_t iteration,
+                                                uint32_t& k0, uint32_t& k1, int32_t& seed) {
+  k0 = 0u;
+  k1 = iteration;
+  threefry2x32(b0, b1, k0, k1);  // fold_in(base, iteration)
+  uint32_t s0 = 0u, s1 = 1u;
+  threefry2x32(k0, k1, s0, s1);  // split(key)[1] = fold_in(key, 1)
+  uint32_t x0 = 0u, x1 = 0u;
+  threefry2x32(s0, s1, x0, x1);  // its draw's element 0
+  seed = static_cast<int32_t>((x0 ^ x1) % 0x7FFFFFFFu);
+}
+
 // ---- Philox4x32-10 (Salmon et al., SC'11; curand_philox4x32_x.h) ---------
 constexpr uint32_t PHILOX_M0 = 0xD2511F53u, PHILOX_M1 = 0xCD9E8D57u;
 constexpr uint32_t PHILOX_W0 = 0x9E3779B9u, PHILOX_W1 = 0xBB67AE85u;

@@ -14,7 +14,9 @@
 //
 // A launch writes the columns col0 .. col0 + n - 1 of the stream (out is
 // [k, n]): the column range of a pixel-sharded render (parallel/sharded.py);
-// the whole block is col0 = 0.
+// the whole block is col0 = 0. The seed comes by value or, in the build with
+// WORDS, is derived in the kernel from the base key and the iteration, read
+// from device memory (the capture route of render/graphs.py).
 //
 // Design: one thread per (column, group of 4 rows): one Philox call gives
 // the group's four rows, written with four stores that each cover 128
@@ -40,10 +42,21 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int MAX_GRID_Y = 65535;
 
+// WORDS: the seed is the iteration's, randint(fold_in(base key, iteration))
+// (path.cuh::iteration_words), derived from the base key (key0, key1) and
+// the iteration read from device memory, *iteration_at (an int64): the
+// iteration is counted by the device in a CUDA graph (render/graphs.py),
+// where a seed baked into the launch would be the captured iteration's.
+template <bool WORDS>
 __global__ void __launch_bounds__(THREADS)
-    k6_kernel(int32_t seed, float* __restrict__ out, int k, int n, int col0) {
+    k6_kernel(int32_t seed, float* __restrict__ out, int k, int n, int col0, uint32_t key0,
+              uint32_t key1, const long long* __restrict__ iteration_at) {
   const int col = blockIdx.x * THREADS + threadIdx.x;
   if (col >= n) return;
+  if (WORDS) {
+    uint32_t ik0, ik1;
+    iteration_words(key0, key1, static_cast<uint32_t>(*iteration_at), ik0, ik1, seed);
+  }
   const uint32_t c = static_cast<uint32_t>(col0 + col);  // the stream's column
   const uint32_t word = stream_word(seed, c);
   const int groups = (k + 3) / 4;
@@ -60,11 +73,16 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-extern "C" int k6_uniforms(int seed, float* out, int k, int n, int col0, void* stream) {
+// iteration_at, if not null, replaces seed: the kernel derives the seed from
+// the base key (key0, key1) and the iteration it reads from device memory.
+extern "C" int k6_uniforms(int seed, float* out, int k, int n, int col0, uint32_t key0,
+                           uint32_t key1, const long long* iteration_at, void* stream) {
   if (k <= 0 || n <= 0) return 0;
   if (col0 < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (k + 3) / 4;
   const dim3 grid((n + THREADS - 1) / THREADS, groups < MAX_GRID_Y ? groups : MAX_GRID_Y);
-  k6_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(seed, out, k, n, col0);
+  auto kernel = iteration_at != nullptr ? k6_kernel<true> : k6_kernel<false>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(seed, out, k, n, col0, key0,
+                                                                  key1, iteration_at);
   return static_cast<int>(cudaGetLastError());
 }

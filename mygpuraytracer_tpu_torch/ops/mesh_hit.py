@@ -17,7 +17,8 @@ lowest face id wins. A ray with t_cap 0 (the padding convention: far
 origin, +x direction) tests none.
 
 ``mesh_hit`` launches the kernel for CUDA tensors and counts its launches
-in ``LAUNCHES``; for CPU tensors it runs the plain version,
+in ``LAUNCHES`` and on the device (``_build.count_on_device``, which a CUDA
+graph's replays move too); for CPU tensors it runs the plain version,
 ``mesh_hit_reference``, which the kernel equals bit for bit. The kernel and
 the plain version visit clusters in different orders, so their visit
 counts differ; both lie between two bounds that :func:`clusters_reached`
@@ -40,7 +41,7 @@ STATS = 3
 THREADS = 256  # block size (csrc/mesh_hit.cu takes 32 to 256; the fastest on an H100)
 MAX_TREE_DEPTH = 32  # the walk's per-thread stack (csrc/mesh.cuh MAX_STACK)
 
-LAUNCHES = 0  # kernel launches since the last reset
+LAUNCHES = 0  # kernel launches from the host since the last reset (a graph capture records one)
 
 
 def tree_depth(num_clusters: int) -> int:
@@ -197,7 +198,7 @@ def mesh_hit(face_plane: torch.Tensor, bounds: torch.Tensor, rays: torch.Tensor,
     out = torch.empty((OUT_ROWS, n), dtype=torch.float32, device=rays.device)
     visits = torch.empty(n, dtype=torch.int32, device=rays.device) if with_visits else None
 
-    from .._build import library, stream_handle
+    from .._build import count_on_device, library, stream_handle
 
     pointer = lambda x: x.data_ptr() if x is not None else None
     err = library().mesh_hit(
@@ -207,4 +208,5 @@ def mesh_hit(face_plane: torch.Tensor, bounds: torch.Tensor, rays: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"mesh kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    count_on_device("mesh_hit", rays.device)
     return out, visits

@@ -21,9 +21,16 @@ draws the same numbers in-kernel at any (row, pixel). Source of K6:
 ``csrc/prng.cu``.
 
 ``pallas_uniforms`` launches K6 for a CUDA device and counts its launches in
-``LAUNCHES``; for the CPU it runs the plain version, ``uniforms_reference``.
-``iteration_uniforms`` is the JAX package's dispatch between this stream and
-threefry (``ops/rng.py``).
+``LAUNCHES`` and on the device (``_build.count_on_device``, which a CUDA
+graph's replays move too); for the CPU it runs the plain version,
+``uniforms_reference``.
+Its seed is an int, passed by value, or that of an iteration counted on the
+device, in a CUDA graph (render/graphs.py): a pair (base key, iteration),
+from which the kernel (its ``WORDS`` build) derives the seed
+``randint(iteration_key(base key, iteration))``, the iteration read from
+device memory. ``iteration_uniforms`` is the JAX package's dispatch between
+this stream and threefry (``ops/rng.py``); :func:`sample_uniforms` is that
+dispatch for an iteration that may be counted on the device.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from . import rng
 _BLK = 2048  # columns per stream word (the TPU kernel's grid block)
 MIX = 0x9E3779B1  # golden-ratio odd multiplier of the seed
 
-LAUNCHES = 0  # kernel launches since the last reset
+LAUNCHES = 0  # kernel launches from the host since the last reset (a graph capture records one)
 
 
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers
@@ -65,38 +72,59 @@ def philox4x32_10(k0, k1, c0, c1, c2, c3):
     return c0, c1, c2, c3
 
 
-def uniforms_reference(seed: int, k: int, n: int, device="cpu", col0: int = 0) -> torch.Tensor:
+def uniforms_reference(seed, k: int, n: int, device="cpu", col0: int = 0) -> torch.Tensor:
     """Plain version of K6: the [k, n] float32 block of the counter stream,
-    its columns ``col0 .. col0 + n - 1``."""
+    its columns ``col0 .. col0 + n - 1``. ``seed`` takes the forms of
+    :func:`pallas_uniforms`'s."""
     col = torch.arange(col0, col0 + n, dtype=torch.int64, device=device)
-    word = ((int(seed) & rng.MASK32) * MIX + col // _BLK) & rng.MASK32
+    if isinstance(seed, tuple):  # (base key, iteration): the seed computed here
+        seed = rng.randint(rng.iteration_key(*seed)).to(device)
+    seed = seed if isinstance(seed, torch.Tensor) else int(seed)
+    word = (rng.mul32(seed & rng.MASK32, MIX) + col // _BLK) & rng.MASK32
     group = torch.arange((k + 3) // 4, dtype=torch.int64, device=device)[:, None]
     words = philox4x32_10(word[None, :], 0, group, (col % _BLK)[None, :], 0, 0)
     rows = torch.stack(torch.broadcast_tensors(*words), dim=1).reshape(-1, n)[:k]
     return (rows >> 8).to(torch.float32) * 2.0**-24
 
 
-def pallas_uniforms(seed: int, k: int, n: int, device="cuda", col0: int = 0) -> torch.Tensor:
+def pallas_uniforms(seed, k: int, n: int, device="cuda", col0: int = 0) -> torch.Tensor:
     """[k, n] U[0, 1) of the counter stream under the int32 ``seed``, its
     columns ``col0 .. col0 + n - 1``: one K6 launch on the current stream
-    for a CUDA device, the plain version for the CPU."""
+    for a CUDA device, the plain version for the CPU. ``seed`` is an int,
+    or a pair (base key, iteration) with ``iteration`` a 0-dim int64 tensor
+    on ``device`` counted there: the seed is then ``randint(iteration_key(
+    base key, iteration))``, which the kernel derives, reading the iteration
+    from device memory."""
     global LAUNCHES
     device = torch.device(device)
     if device.type == "cpu":
         return uniforms_reference(seed, k, n, device, col0)
     if device.type != "cuda":
         raise ValueError(f"K6 runs on CUDA or (plain) the CPU, not {device}")
-    if not -(2**31) <= int(seed) < 2**31 or k < 0 or n < 0 or col0 < 0:
-        raise ValueError(f"need an int32 seed and k, n, col0 >= 0, got {seed}, {k}, {n}, {col0}")
+    counted = isinstance(seed, tuple)
+    if counted:
+        base_key, iteration = seed
+        if not (isinstance(iteration, torch.Tensor) and iteration.dim() == 0
+                and iteration.dtype == torch.int64 and iteration.device.type == "cuda"):
+            raise ValueError(f"a counted iteration must be a 0-dim int64 CUDA tensor, got "
+                             f"{iteration!r}")
+    elif not -(2**31) <= int(seed) < 2**31:
+        raise ValueError(f"need an int32 seed, got {seed}")
+    if k < 0 or n < 0 or col0 < 0:
+        raise ValueError(f"need k, n, col0 >= 0, got {k}, {n}, {col0}")
     out = torch.empty((k, n), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
+    if counted and iteration.device != out.device:
+        raise ValueError(f"the iteration lies on {iteration.device}, the block on {out.device}")
+    words = (0, *base_key, iteration.data_ptr()) if counted else (int(seed), 0, 0, None)
     with _build.device_guard(out.device):
-        err = _build.library().k6_uniforms(int(seed), out.data_ptr(), k, n, int(col0),
+        err = _build.library().k6_uniforms(words[0], out.data_ptr(), k, n, int(col0), *words[1:],
                                            _build.stream_handle(out.device))
     if err != 0:
         raise RuntimeError(f"K6 launch failed: CUDA error {err}")
     LAUNCHES += 1
+    _build.count_on_device("k6", out.device)
     return out
 
 
@@ -125,3 +153,17 @@ def iteration_uniforms(options, ikey: rng.Key, iteration: int, k: int, n: int,
     if pixels is None:
         return rng.uniform(ikey, (k, n), device)
     return rng.uniform_columns(ikey, k, n, p0, count, device)
+
+
+def sample_uniforms(options, base_key: rng.Key, iteration, k: int, n: int, device="cuda",
+                    pixels: tuple[int, int] | None = None) -> torch.Tensor:
+    """:func:`iteration_uniforms` under ``iteration_key(base_key,
+    iteration)``, for an int ``iteration`` or one counted on the device (a
+    0-dim int64 tensor). The latter's key words are computed there, or,
+    under "pallas", not at all: K6 derives the seed from ``base_key`` and
+    the iteration it reads from device memory."""
+    if isinstance(iteration, torch.Tensor) and uniforms_mode(options, device) == "pallas":
+        p0, count = pixels if pixels is not None else (0, n)
+        return pallas_uniforms((base_key, iteration), k, count, device, col0=p0)
+    return iteration_uniforms(options, rng.iteration_key(base_key, iteration), iteration, k, n,
+                              device, pixels)

@@ -17,6 +17,13 @@ numbers as the JAX package's wavefront.
 
 Words are carried in int64 tensors (or Python ints) masked to 32 bits, since
 torch has no full set of uint32 ops; :func:`threefry2x32` takes either.
+
+A key's words may themselves be tensors: :func:`iteration_key` of an
+iteration counted on the device (an int64 tensor, 0-dim or a batch) gives
+tensor words, and :func:`fold_in`, :func:`bounce_key`, :func:`randint` and
+the draws keep them on the device with no host sync, so that a CUDA graph
+can record an iteration whose number it reads from device memory
+(render/graphs.py). Both forms give the same bits.
 """
 
 from __future__ import annotations
@@ -58,9 +65,17 @@ def make_key(seed: int) -> Key:
     return (0, seed & MASK32)
 
 
-def fold_in(key: Key, data: int) -> Key:
-    """``jax.random.fold_in(key, data)``."""
-    y0, y1 = threefry2x32(key[0], key[1], 0, int(data) & MASK32)
+def _is_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def fold_in(key: Key, data) -> Key:
+    """``jax.random.fold_in(key, data)``; tensor words (of the key or of
+    ``data``, an int64 tensor) stay tensors."""
+    data = data & MASK32 if _is_tensor(data) else int(data) & MASK32
+    y0, y1 = threefry2x32(key[0], key[1], 0, data)
+    if _is_tensor(y0):
+        return (y0, y1)
     return (int(y0), int(y1))
 
 
@@ -70,7 +85,7 @@ def split(key: Key, num: int = 2) -> list[Key]:
     return [fold_in(key, i) for i in range(num)]
 
 
-def _mul32(a, b):
+def mul32(a, b):
     """``(a * b) mod 2**32`` of words below 2**32 without int64 overflow."""
     return ((((a >> 16) * b & 0xFFFF) << 16) + (a & 0xFFFF) * b) & MASK32
 
@@ -84,30 +99,36 @@ def _randint_words(higher, lower, minval: int, maxval: int):
     span = (maxval - minval) & MASK32
     multiplier = (2**16) % span
     multiplier = ((multiplier * multiplier) & MASK32) % span
-    offset = (_mul32(higher % span, multiplier) + lower % span) & MASK32
+    offset = (mul32(higher % span, multiplier) + lower % span) & MASK32
     value = (minval + offset % span) & MASK32
     return value - ((value >> 31) << 32)
 
 
-def randint(key: Key, minval: int = 0, maxval: int = 2**31 - 1) -> int:
+def randint(key: Key, minval: int = 0, maxval: int = 2**31 - 1):
     """``jax.random.randint(key, (), minval, maxval, dtype=int32)`` for
     ``minval < maxval`` within int32, as ``jax/_src/random.py::_randint``
-    computes it: two 32-bit words under ``split(key)``, reduced modulo the
-    span with uint32 arithmetic that wraps."""
-    k1, k2 = split(key)
-    higher, lower = (int(random_bits(k, 1)[0]) for k in (k1, k2))
+    computes it: two 32-bit words under ``split(key)`` (element 0 of a draw
+    under each key), reduced modulo the span with uint32 arithmetic that
+    wraps. An int for a key of ints (computed on ints alone); for tensor
+    words, an int64 tensor of their shape, one per key."""
+    if _is_tensor(key[0]):
+        w0, w1 = split_words(key, 2)
+        y0, y1 = threefry2x32(w0, w1, 0, 0)
+        bits = y0 ^ y1
+        return _randint_words(bits[..., 0], bits[..., 1], minval, maxval)
+    higher, lower = (int(y0 ^ y1) for y0, y1 in
+                     (threefry2x32(k[0], k[1], 0, 0) for k in split(key)))
     return _randint_words(higher, lower, minval, maxval)
 
 
 def split_words(key, num: int):
     """``jax.random.split`` of a key whose words may be int64 tensors (a batch
     of keys): the words of ``num`` keys on a new last axis."""
-    idx = torch.arange(num, dtype=torch.int64)
     k0, k1 = key
-    if isinstance(k0, torch.Tensor):
-        idx = idx.to(k0.device)
-        k0, k1 = k0[..., None], k1[..., None]
-    return threefry2x32(k0, k1, 0, idx)
+    if not _is_tensor(k0):
+        return threefry2x32(k0, k1, 0, torch.arange(num, dtype=torch.int64))
+    idx = torch.arange(num, dtype=torch.int64, device=k0.device)
+    return threefry2x32(k0[..., None], k1[..., None], 0, idx)
 
 
 def _shaped_bits(key, shape, device):
@@ -144,7 +165,10 @@ def bernoulli(key, p: float, shape, device="cpu") -> torch.Tensor:
 
 def random_bits(key: Key, numel: int, device="cpu", offset: int = 0) -> torch.Tensor:
     """32-bit random words (int64 tensor) of flat elements
-    ``offset .. offset + numel - 1`` of a draw under ``key``."""
+    ``offset .. offset + numel - 1`` of a draw under ``key`` (a key of
+    0-dim tensor words draws on their device)."""
+    if _is_tensor(key[0]):
+        device = key[0].device
     idx = torch.arange(offset, offset + numel, dtype=torch.int64, device=device)
     y0, y1 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK32)
     return y0 ^ y1
@@ -158,6 +182,8 @@ def uniform_columns(key: Key, rows: int, n: int, p0: int, count: int,
     range of a sharded render)."""
     if not 0 <= p0 <= n - count:
         raise ValueError(f"columns {p0} .. {p0 + count - 1} lie outside [0, {n})")
+    if _is_tensor(key[0]):
+        device = key[0].device
     idx = (torch.arange(rows, dtype=torch.int64, device=device)[:, None] * n
            + torch.arange(p0, p0 + count, dtype=torch.int64, device=device)[None, :])
     y0, y1 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK32)
@@ -179,8 +205,11 @@ def uniform(key: Key, shape, device="cpu") -> torch.Tensor:
     return bits_to_uniform(random_bits(key, numel, device)).reshape(shape)
 
 
-def iteration_key(base_key: Key, iteration: int) -> Key:
-    """Key for one camera sample (MC iteration)."""
+def iteration_key(base_key: Key, iteration) -> Key:
+    """Key for one camera sample (MC iteration): ``fold_in(base_key,
+    iteration)``. ``iteration`` is an int, or an int64 tensor of
+    iterations counted on the device (0-dim, or a batch), whose key words
+    are tensors of its shape on its device."""
     return fold_in(base_key, iteration)
 
 

@@ -551,6 +551,16 @@ def bvh_scene_hit_nearfar(meta, fp, o: Vec3, d: Vec3, active, bounds=None) -> Hi
     return hit._replace(hit=hit.hit & active, t=torch.where(active, hit.t, INF))
 
 
+def uses_mesh_tiers(meta, mesh_pallas: bool | None, device) -> bool:
+    """Whether :func:`intersect_soa` sends the scene's meshes to the mesh
+    tiers (``mesh_pallas``, None: on for a CUDA ``device``; a mesh of more
+    than 256 faces in clusters), whose shapes are static, rather than the
+    chunked stream, which compacts the live lanes."""
+    if mesh_pallas is None:
+        mesh_pallas = torch.device(device).type == "cuda"
+    return bool(mesh_pallas and meta.mesh_clusters and meta.num_faces > 256)
+
+
 def intersect_soa(
     meta, dev, o: Vec3, d: Vec3, face_chunk: int = 128, bounding_box: bool = False,
     mesh_pallas: bool | None = None, mesh_sort: bool | str = False,
@@ -585,11 +595,9 @@ def intersect_soa(
     else:
         t_query = run.t
     with_bump = any(g.bump > 0 for g in meta.geoms)
-    if mesh_pallas is None:
-        mesh_pallas = o.x.device.type == "cuda"
     zeros = torch.zeros_like(o.x)
 
-    if mesh_pallas and bool(meta.mesh_clusters) and meta.num_faces > 256:
+    if uses_mesh_tiers(meta, mesh_pallas, o.x.device):
         if mesh_tier in ("rows", "rows_dma"):
             table = _winner_ex(dev, winner_table)
             query = lambda ov, dv, tc: mesh_rows_hit(

@@ -112,7 +112,8 @@ def sharded_render_step(meta: SceneMeta, options: RenderOptions, mesh: Mesh):
     iteration, key)`` adds iteration ``iteration`` into the sharded
     ``image``/``albedo`` (updated in place, as the JAX step donates them)
     and returns (image, albedo, cache). ``dev`` is the scene or its per-device copies (``mesh.replicate``);
-    the copies and K1/K5's records are made once per scene passed. Device
+    the copies and K1/K5's records are made once per scene passed, and again
+    after its camera was written in place (``Renderer.move_camera``). Device
     memory per device scales as N/D. ``make_state()`` gives zeroed
     accumulators and an empty cache per device. The megakernel route takes
     one launch per device and iteration, so its image equals a sequential
@@ -122,14 +123,19 @@ def sharded_render_step(meta: SceneMeta, options: RenderOptions, mesh: Mesh):
         raise ValueError("pixel count must divide the mesh size")
     ranges = split(n, mesh)
     mega = _megakernel_route(meta, options)
-    held = {"key": (), "copies": []}  # the scene last passed; its copies and K1/K5's records
+    # The scene last passed, its cameras' versions, its copies and K1/K5's records.
+    held = {"key": (), "versions": (), "copies": []}
 
     def scenes(dev):
         """Per device: the scene's copy and K1/K5's record (None off the
-        megakernel route), made again only when another scene is passed."""
+        megakernel route), made again only when another scene is passed or
+        a camera tensor of the one passed was written in place (which bumps
+        the tensor's version counter)."""
         key = (dev,) if isinstance(dev, DeviceScene) else tuple(dev)
-        if len(key) != len(held["key"]) or any(a is not b for a, b in zip(key, held["key"])):
-            held.update(key=key, copies=[
+        versions = tuple(t._version for d in key for t in d.camera)
+        if len(key) != len(held["key"]) or any(a is not b for a, b in zip(key, held["key"])) \
+                or versions != held["versions"]:
+            held.update(key=key, versions=versions, copies=[
                 (d, megakernel.scene_record(meta, d.camera) if mega else None)
                 for d in _replicated(dev, mesh)])
         return held["copies"]

@@ -28,8 +28,15 @@ selects), so their images equal their plain versions'
 (:func:`megakernel_accumulate_reference`,
 :func:`bvh_bounce_accumulate_reference`) up to float rounding.
 
+K5's iteration words (the iteration key, K6's seed, the iteration) go to
+the kernel by value or, for an iteration counted on the device (a CUDA
+graph of the Renderer's, render/graphs.py), through device memory (its
+WORDS build), where a one-thread kernel launched before it derives them
+from the base key and the iteration, which it reads there.
+
 The wrappers count their launches in ``LAUNCHES`` (K1) and
-``BOUNCE_LAUNCHES`` (K5). For CPU tensors they run the plain versions; for
+``BOUNCE_LAUNCHES`` (K5), and on the device (``_build.count_on_device``,
+which a CUDA graph's replays move too). For CPU tensors they run the plain versions; for
 CUDA tensors they launch the kernel, on the accumulator's device, or raise.
 
 Each takes an optional pixel range ``pixels = (p0, count)``: the
@@ -68,8 +75,8 @@ K1_STATS = 7
 # lanes of ended paths over those rounds (csrc/bounce.cu).
 STATS = 4
 
-LAUNCHES = 0  # K1 launches since the last reset
-BOUNCE_LAUNCHES = 0  # K5 launches since the last reset
+LAUNCHES = 0  # K1 launches from the host since the last reset
+BOUNCE_LAUNCHES = 0  # K5 launches from the host since the last reset (a graph capture records one)
 
 
 def _uses_bvh(meta: SceneMeta) -> bool:
@@ -192,7 +199,7 @@ def megakernel_accumulate(
                               or tuple(stats.shape) != (K1_STATS,) or not stats.is_contiguous()):
         raise ValueError(f"stats must be a contiguous int64 [{K1_STATS}] tensor on {acc.device}")
 
-    from .._build import device_guard, library, stream_handle
+    from .._build import count_on_device, device_guard, library, stream_handle
 
     queue = torch.empty(1, dtype=torch.int32, device=acc.device)  # zeroed by the launch
     dof = bool(options.depth_of_field and options.lens_radius > 0)
@@ -208,6 +215,7 @@ def megakernel_accumulate(
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
     LAUNCHES += 1
+    count_on_device("k1", acc.device)
     return acc
 
 
@@ -242,40 +250,53 @@ def bvh_bounce_accumulate_reference(
 
 def bvh_bounce_accumulate(
     dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
-    start_iteration: int, num_iters: int, base_key: rng.Key,
+    start_iteration, num_iters: int, base_key: rng.Key,
     record: torch.Tensor | None = None, visits: torch.Tensor | None = None,
     pixels: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Accumulate ``num_iters`` iterations from ``start_iteration`` into
     ``acc`` [9, N] float32 (rows: color sum rgb, albedo rgb, normal xyz):
-    per iteration, the raygen uniforms (``iteration_uniforms``, 4 rows), the
+    per iteration, the raygen uniforms (``prng.sample_uniforms``, 4 rows), the
     camera rays, then one K5 launch (:func:`bounce_launch`). ``record`` is
     :func:`scene_record`, built here when not given. ``visits`` (int32 [N]),
     if given, gains the clusters each ray tested. With ``pixels`` = (p0,
     count), ``acc`` is [9, count] (and ``visits`` [count]) for the image's
-    pixels p0 .. p0 + count - 1."""
+    pixels p0 .. p0 + count - 1.
+
+    ``start_iteration`` is an int, or a 0-dim int64 tensor on ``acc``'s
+    device that counts the iterations on the device (the capture route,
+    render/graphs.py): K6 and K5 then derive each iteration's words from
+    ``base_key`` and the iteration, which they read from device memory, so
+    that no launch holds a host value of the iteration."""
     if acc.device.type == "cpu":
         return bvh_bounce_accumulate_reference(
             dev, meta, options, acc, start_iteration, num_iters, base_key, pixels)
-    if num_iters < 0 or start_iteration < 1:
+    counted = isinstance(start_iteration, torch.Tensor)
+    if num_iters < 0 or (not counted and start_iteration < 1):
         raise ValueError("need num_iters >= 0, start_iteration >= 1")
+    if counted and (pixels is not None or visits is not None):
+        raise ValueError("an iteration counted on the device takes the whole image, no visits")
     if record is None:
         record = scene_record(meta, dev.camera)
     n, p0, _ = _pixel_range(meta, pixels)
     for i in range(num_iters):
-        it = start_iteration + i
-        ikey = rng.iteration_key(base_key, it)
-        U = prng.iteration_uniforms(options, ikey, it, 4, n, acc.device, pixels)
+        it = start_iteration + i if i else start_iteration
+        U = prng.sample_uniforms(options, base_key, it, 4, n, acc.device, pixels)
         o, d = generate_camera_rays(dev.camera, meta.resolution, options, U, p0=p0)
         rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z])
-        bounce_launch(dev, meta, options, acc, rays, it, ikey, record, visits, p0=p0)
+        if counted:
+            bounce_launch(dev, meta, options, acc, rays, it, None, record, base_key=base_key)
+        else:
+            bounce_launch(dev, meta, options, acc, rays, it, rng.iteration_key(base_key, it),
+                          record, visits, p0=p0)
     return acc
 
 
 def bounce_launch(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
-                  rays: torch.Tensor, iteration: int, ikey: rng.Key, record: torch.Tensor,
-                  visits: torch.Tensor | None = None,
-                  stats: torch.Tensor | None = None, p0: int = 0) -> torch.Tensor:
+                  rays: torch.Tensor, iteration, ikey: rng.Key | None,
+                  record: torch.Tensor, visits: torch.Tensor | None = None,
+                  stats: torch.Tensor | None = None, p0: int = 0,
+                  base_key: rng.Key | None = None) -> torch.Tensor:
     """One K5 launch on the current stream: iteration ``iteration``'s bounce
     loop from the camera rays ``rays`` [6, count] (origin xyz, direction
     xyz) of the image's pixels p0 .. p0 + count - 1 (the whole image: p0 =
@@ -283,7 +304,12 @@ def bounce_launch(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
     count] (CUDA tensors only). ``visits`` (int32 [count]) gains the
     clusters each ray tested; ``stats`` (int64 [STATS]) gains the tree nodes
     the rays visited, the warp traversal iterations, the warp bounce rounds
-    and the lanes of ended paths over those rounds."""
+    and the lanes of ended paths over those rounds. An iteration counted on
+    the device (``iteration`` a 0-dim int64 tensor on ``acc``'s device)
+    takes ``base_key`` instead of ``ikey``: a one-thread kernel before K5
+    reads the iteration from device memory and derives its key and K6's
+    seed from ``base_key``, and K5 reads them there (the whole image, no
+    counters)."""
     global BOUNCE_LAUNCHES
     if acc.device.type != "cuda":
         raise ValueError("bounce_launch takes CUDA tensors; bvh_bounce_accumulate runs K5's "
@@ -294,8 +320,15 @@ def bounce_launch(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
         raise ValueError("scene/options not supported by K5 (see supports_megakernel, _uses_bvh)")
     if options.dir_aov:
         raise ValueError("K5 does not compute dir_aov")
-    if meta.trace_depth < 1 or iteration < 1:
+    counted = isinstance(iteration, torch.Tensor)
+    if meta.trace_depth < 1 or (not counted and iteration < 1):
         raise ValueError("need trace_depth >= 1 and iteration >= 1")
+    if counted and (iteration.device != acc.device or iteration.dtype != torch.int64
+                    or iteration.dim() != 0 or base_key is None or ikey is not None
+                    or p0 != 0 or count != n or visits is not None or stats is not None):
+        raise ValueError("a counted iteration is a 0-dim int64 tensor on acc's device, with "
+                         "base_key and no ikey, for a whole-image launch without visits or "
+                         "stats")
     faces, tree = dev.face_gather, dev.cluster_tree
     num_clusters = dev.cluster_bounds.shape[1]
     depth = tree_depth(num_clusters)
@@ -316,19 +349,25 @@ def bounce_launch(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)} tensor on "
                              f"{acc.device}")
 
-    from .._build import device_guard, library, stream_handle
+    from .._build import count_on_device, device_guard, library, stream_handle
 
     counter = prng.uniforms_mode(options, acc.device) == "pallas"
     pointer = lambda x: x.data_ptr() if x is not None else None
+    if counted:  # the launch's words scratch, written and read on the device
+        words = torch.empty(4, dtype=torch.int64, device=acc.device)
+        values = (0, int(counter), *base_key, 0, iteration.data_ptr(), words.data_ptr())
+    else:
+        values = (int(iteration), int(counter), *ikey, rng.randint(ikey) if counter else 0, None,
+                  None)
     with device_guard(acc.device):
         err = library().k5_bounce(
             rays.data_ptr(), record.data_ptr(), faces.data_ptr(), tree.data_ptr(),
             acc.data_ptr(), pointer(visits), pointer(stats), n, p0, count, meta.trace_depth,
-            int(iteration), int(counter), ikey[0], ikey[1], rng.randint(ikey) if counter else 0,
-            num_clusters, depth, stream_handle(acc.device))
+            *values, num_clusters, depth, stream_handle(acc.device))
     if err != 0:
         raise RuntimeError(f"K5 launch failed: CUDA error {err}")
     BOUNCE_LAUNCHES += 1
+    count_on_device("k5", acc.device)
     return acc
 
 

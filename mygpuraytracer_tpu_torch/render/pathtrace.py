@@ -40,6 +40,18 @@ kernel (ops/mesh_hit.py), everything else is PyTorch. The kernels' plain
 versions run ``wavefront_sample``/``trace_sample`` with the three options
 off (their keyword defaults).
 
+The bounce loop runs every one of its ``depth - 1`` bounces, with the
+lanes of ended paths masked: ``shade_soa`` passes a dead lane through and
+the mesh query leaves it out, so a bounce with no live lane changes
+nothing, which is what the JAX package's ``lax.cond(any_alive, ...)``
+guard relies on. No value is read back to the host to decide it.
+
+``iteration`` is an int or, on the capture route of the Renderer's CUDA
+graphs (render/graphs.py), a 0-dim int64 tensor: an iteration counted on
+the device, whose key and uniforms are computed there. The Renderer runs
+iteration 1 eagerly, so a counted iteration is never the first
+(:func:`is_first`).
+
 Every function takes an optional pixel range ``pixels = (p0, count)``: the
 lanes are then the image's pixels p0 .. p0 + count - 1 and every [.., N]
 array is [.., count]. Raygen reads the image's pixel p0 + lane and the
@@ -58,7 +70,7 @@ import torch
 from ..config import RenderOptions
 from ..ops import rng
 from ..ops.compaction import material_sort_perm
-from ..ops.prng import iteration_uniforms
+from ..ops.prng import sample_uniforms
 from ..ops.trace import HitSoA, intersect_soa
 from ..ops.vec3 import Vec3
 from ..scene.device_scene import DeviceScene, SceneMeta
@@ -78,6 +90,26 @@ class SampleOutput(NamedTuple):
     # their sums over iterations give the normalized mean direction.
     dirmap: Vec3 | None = None
     dirlum: torch.Tensor | None = None
+
+
+def is_first(iteration) -> bool:
+    """Whether ``iteration`` is iteration 1, which writes the AOVs and fills
+    the first-bounce cache. An iteration counted on the device (a tensor)
+    is a later one: the capture route runs iteration 1 eagerly."""
+    return not isinstance(iteration, torch.Tensor) and iteration == 1
+
+
+def cache_tensors(cache: HitSoA) -> list[torch.Tensor]:
+    """The cache's tensors, nested Vec3 fields flattened, in field order."""
+    return [t for f in cache for t in (f if isinstance(f, tuple) else (f,))]
+
+
+def clear_cache(cache: HitSoA) -> None:
+    """Make ``cache`` the empty cache in place: every lane a miss (t =
+    +inf, every other field zero), as :func:`make_empty_cache` builds it."""
+    cache.t.fill_(math.inf)
+    for t in cache_tensors(cache)[1:]:
+        t.zero_()
 
 
 def make_empty_cache(n: int, device="cuda") -> HitSoA:
@@ -191,7 +223,7 @@ def render_sample(
     dev: DeviceScene,
     meta: SceneMeta,
     options: RenderOptions,
-    iteration: int,  # 1-based like the reference
+    iteration,  # 1-based like the reference; an int, or a counted 0-dim tensor
     base_key: rng.Key,
     cache: HitSoA | None = None,
     pixels: tuple[int, int] | None = None,
@@ -213,18 +245,17 @@ def render_sample(
 
 
 def wavefront_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions,
-                     iteration: int, base_key: rng.Key, cache: HitSoA | None = None, *,
+                     iteration, base_key: rng.Key, cache: HitSoA | None = None, *,
                      sort: bool = False, cache_first_bounce: bool = False,
                      dir_aov: bool = False,
                      pixels: tuple[int, int] | None = None) -> SampleOutput:
-    """One iteration of the wavefront: ``iteration_uniforms`` and
+    """One iteration of the wavefront: ``sample_uniforms`` and
     ``intersect_soa`` with the options' mesh settings, then
     :func:`trace_sample` with the wavefront options given here (all off by
     default, as the kernels' plain versions call it)."""
     n = meta.resolution[0] * meta.resolution[1]
-    U = iteration_uniforms(options, rng.iteration_key(base_key, iteration), iteration,
-                           num_rng_streams(meta.trace_depth), n, dev.camera.position.device,
-                           pixels)
+    U = sample_uniforms(options, base_key, iteration, num_rng_streams(meta.trace_depth), n,
+                        dev.camera.position.device, pixels)
     query = lambda o, d, active=None: intersect_soa(
         meta, dev, o, d, options.face_chunk, bounding_box=options.bounding_box,
         mesh_pallas=options.mesh_pallas, mesh_sort=options.mesh_sort,
@@ -243,7 +274,7 @@ def _shade_rows(U: torch.Tensor, depth: int) -> torch.Tensor:
                      dim=2).contiguous()
 
 
-def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iteration: int,
+def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iteration,
                  U: torch.Tensor, query: Callable[..., HitSoA],
                  cache: HitSoA | None = None, *, sort: bool = False,
                  cache_first_bounce: bool = False, dir_aov: bool = False,
@@ -268,13 +299,13 @@ def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iter
         remaining=torch.full((n,), depth, dtype=torch.int32, device=device),
     )
 
-    if cache_first_bounce and cache is not None and iteration != 1:
+    if cache_first_bounce and cache is not None and not is_first(iteration):
         hit0 = cache
     else:
         hit0 = query(o, d)
     new_cache = hit0 if cache_first_bounce else cache
     zero = torch.zeros(n, dtype=torch.float32, device=device)
-    if iteration == 1:
+    if is_first(iteration):
         albedo = albedo_soa(meta, dev, hit0)
         normal = Vec3(*(torch.where(hit0.hit, c, zero) for c in hit0.normal))
     else:
@@ -300,11 +331,9 @@ def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iter
         dir0, alive0 = state.direction, state.remaining > 0
 
     for b in range(1, depth):
-        active = state.remaining > 0
-        if not bool(active.any()):
-            break  # no live path: later bounces change nothing
-        # Dead lanes keep a stale ray; ``active`` keeps it out of the mesh query.
-        h = query(state.origin, state.direction, active)
+        # Dead lanes keep a stale ray; ``active`` keeps it out of the mesh
+        # query, and shade passes them through.
+        h = query(state.origin, state.direction, state.remaining > 0)
         if sort:
             state, h, pixel = _sort_wavefront(meta, state, h, pixel, num_materials,
                                               options.sort_impl)
@@ -328,14 +357,14 @@ def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iter
                         dirmap=dirmap, dirlum=dirlum)
 
 
-def accumulate_sample(acc: torch.Tensor, out: SampleOutput, iteration: int,
+def accumulate_sample(acc: torch.Tensor, out: SampleOutput, iteration,
                       dir_acc: torch.Tensor | None = None) -> None:
     """Add one sample into the [9, N] accumulator in place: rows 0-2 sum the
     color, rows 3-5 and 6-8 take the albedo and normal AOVs at iteration 1.
     ``dir_acc`` [4, N], if given, sums the dir AOV (direction rows 0-2,
     luminance row 3) of a sample that has one."""
     acc[0:3] += torch.stack(out.color)
-    if iteration == 1:
+    if is_first(iteration):
         acc[3:6] = torch.stack(out.albedo)
         acc[6:9] = torch.stack(out.normal)
     if dir_acc is not None and out.dirmap is not None:

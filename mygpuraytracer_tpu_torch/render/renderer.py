@@ -22,6 +22,20 @@ goes through the mesh tiers: their CUDA kernel on a CUDA device, its plain
 version on the CPU (ops/mesh_hit.py). ``move_camera`` moves the camera and
 resets the accumulation (main.cpp:222-248).
 
+On CUDA, ``step``/``step_many`` replay a captured CUDA graph, as the JAX
+Renderer runs its jitted ``_iteration_step``/``_multi_step``
+(render/graphs.py): iteration 1 runs eagerly, then every iteration is one
+replay of one graph (on the K5 route: K6's raygen uniforms, the camera
+rays and K5). The route is
+chosen up front (``graph_route``): the K1 route is already one launch per
+batch and stays as it is, and a wavefront whose mesh query compacts its
+live lanes (a mesh off the mesh tiers: ``mesh_pallas=False``, or a mesh
+too small for them) has data-dependent shapes and runs eagerly. The CPU
+runs eagerly, as does every step inside ``graphs.disabled()``. The
+accumulators, the cache, the camera and K5's record stay where they are
+for the Renderer's life: ``reset`` and ``move_camera`` write them in
+place, so the graphs stay valid.
+
 As in the JAX package, the auto options are resolved once, at
 construction, from the device: on CUDA the mesh tiers are on,
 ``mesh_sort="need"`` is chosen for a mesh embedded in a primitive room, and
@@ -38,12 +52,13 @@ import torch
 
 from ..config import RenderOptions
 from ..ops import rng
+from ..ops.trace import uses_mesh_tiers
 from ..scene.device_scene import build_device_scene, camera_params
 from ..scene.structs import GeomType, Scene
 from ..utils.timer import PerformanceTimer
-from . import megakernel
-from .pathtrace import accumulate_sample, make_empty_cache, render_sample
-
+from . import graphs, megakernel
+from .pathtrace import (accumulate_sample, cache_tensors, clear_cache, make_empty_cache,
+                        render_sample)
 
 def mesh_reach_fraction(scene: Scene, meta, grid: int = 64) -> float:
     """Host-side estimate of the share of camera rays (a grid x grid set of
@@ -85,11 +100,8 @@ def _resolve_auto_options(options: RenderOptions, scene: Scene, meta,
     if options.mesh_sort is not None:
         return options
     use: bool | str = False
-    pallas = options.mesh_pallas
-    if pallas is None:
-        pallas = torch.device(device).type == "cuda"
     n_prim = sum(1 for g in meta.geoms if g.type != int(GeomType.OBJ))
-    if (pallas and meta.has_obj and bool(meta.mesh_clusters) and meta.num_faces > 256
+    if (uses_mesh_tiers(meta, options.mesh_pallas, device)
             and n_prim >= 4 and mesh_reach_fraction(scene, meta) < 0.30):
         use = "need"
     return dataclasses.replace(options, mesh_sort=use)
@@ -122,32 +134,61 @@ class Renderer:
             and not self.options.dir_aov
             and megakernel.supports_megakernel(self.meta, self.options)
         )
+        self.graph_route = self._graph_route()
+        self.graph: graphs.Captured | None = None  # one iteration, captured at its first use
+        self._graph_pool = None
+        self._graph_buffers = None
+        self._counter = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.acc = self.record = None
         self.reset()
+
+    def _graph_route(self) -> str | None:
+        """``"wavefront"``, ``"k5"`` or None (eager): decided once, from the
+        device and the options."""
+        if self.device.type != "cuda":
+            return None
+        if self.use_megakernel:
+            return "k5" if megakernel._uses_bvh(self.meta) else None  # K1: one launch a batch
+        if self.meta.has_obj and not uses_mesh_tiers(self.meta, self.options.mesh_pallas,
+                                                     self.device):
+            return None  # the chunked stream compacts the live lanes (data-dependent shapes)
+        return "wavefront"
 
     # -- lifecycle (pathtraceInit/Free analog) --------------------------------
     def reset(self) -> None:
-        """Zero the accumulators and the iteration counter and drop the
-        first-bounce cache (camera-move semantics)."""
+        """Zero the accumulators and the iteration counter and empty the
+        first-bounce cache (camera-move semantics), in place: the
+        accumulators and the cache keep their storage, which the graphs
+        hold."""
         w, h = self.meta.resolution
         n = w * h
-        self.acc = torch.zeros((9, n), dtype=torch.float32, device=self.device)
-        self.dir_acc = torch.zeros((4, n), dtype=torch.float32, device=self.device)
-        self.cache = (make_empty_cache(n, self.device)
-                      if self.options.first_bounce_cache_active else None)
+        if self.acc is None:
+            self.acc = torch.zeros((9, n), dtype=torch.float32, device=self.device)
+            self.dir_acc = torch.zeros((4, n), dtype=torch.float32, device=self.device)
+            self.cache = (make_empty_cache(n, self.device)
+                          if self.options.first_bounce_cache_active else None)
+        else:
+            self.acc.zero_()
+            self.dir_acc.zero_()
+            if self.cache is not None:
+                clear_cache(self.cache)
         self.iteration = 0
-        self.record = (megakernel.scene_record(self.meta, self.dev.camera)
-                       if self.use_megakernel else None)
+        if self.use_megakernel:
+            record = megakernel.scene_record(self.meta, self.dev.camera)
+            self.record = record if self.record is None else self.record.copy_(record)
 
     def move_camera(self, position=None, look_at=None) -> None:
-        """Move the camera and reset the accumulation (main.cpp:222-248);
-        K1's scene record is rebuilt from the new camera."""
+        """Move the camera and reset the accumulation (main.cpp:222-248):
+        the new camera is written into the device's camera tensors in place
+        and the kernels' scene record rebuilt from it."""
         cam = self.scene.state.camera
         if position is not None:
             cam.position = np.asarray(position, np.float32)
         if look_at is not None:
             cam.look_at = np.asarray(look_at, np.float32)
         cam.rebuild()
-        self.dev = self.dev._replace(camera=camera_params(cam, self.device))
+        for old, new in zip(self.dev.camera, camera_params(cam, self.device)):
+            old.copy_(new)
         self.reset()
 
     # -- iteration ------------------------------------------------------------
@@ -156,20 +197,63 @@ class Renderer:
         return self.step_many(1)
 
     def step_many(self, num_iters: int) -> int:
-        """Run ``num_iters`` MC iterations (one K1 launch, or one K5 launch
-        per iteration, where the megakernel route applies)."""
+        """Run ``num_iters`` MC iterations: one K1 launch where that route
+        applies; else on CUDA, past iteration 1, replays of the captured
+        graphs (``graph_route``); else iteration by iteration (K5: one
+        launch per iteration)."""
         start = self.iteration + 1
+        if self.graph_route is not None and graphs.enabled():
+            if start == 1 and num_iters > 0:
+                self._eager(1, 1)  # fills the AOVs and the cache; the capture's warm-up
+                start, num_iters = 2, num_iters - 1
+                self.iteration += 1
+            self._replay(start, num_iters)
+        else:
+            self._eager(start, num_iters)
+        self.iteration += num_iters
+        return self.iteration
+
+    def _eager(self, start: int, num_iters: int) -> None:
         if self.use_megakernel:
             megakernel.accumulate(self.dev, self.meta, self.options, self.acc, start, num_iters,
                                   self.base_key, record=self.record)
-        else:
-            for it in range(start, start + num_iters):
-                out = render_sample(self.dev, self.meta, self.options, it, self.base_key,
-                                    self.cache)
-                accumulate_sample(self.acc, out, it, self.dir_acc)
-                self.cache = out.cache
-        self.iteration += num_iters
-        return self.iteration
+            return
+        for it in range(start, start + num_iters):
+            out = render_sample(self.dev, self.meta, self.options, it, self.base_key,
+                                self.cache)
+            accumulate_sample(self.acc, out, it, self.dir_acc)
+            if out.cache is not None and out.cache is not self.cache:
+                for kept, new in zip(cache_tensors(self.cache), cache_tensors(out.cache)):
+                    kept.copy_(new)
+
+    def _replay(self, start: int, num_iters: int) -> None:
+        """Iterations ``start`` (>= 2) .. ``start + num_iters - 1``: the
+        device counter set to ``start``, then the graph (captured at its
+        first use) replayed ``num_iters`` times, each adding one to it."""
+        if num_iters <= 0:
+            return
+        buffers = [self.acc, self.dir_acc, self._counter, *self.dev.camera]
+        buffers += cache_tensors(self.cache) if self.cache is not None else []
+        buffers += [self.record] if self.record is not None else []
+        held = tuple(t.data_ptr() for t in buffers)
+        if held != self._graph_buffers:  # a buffer was replaced: capture anew
+            self.graph = None
+            self._graph_buffers = held
+        self._counter.fill_(start)
+        if self.graph is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            if self.graph_route == "k5":
+                body = lambda: graphs.bounce_step(self.dev, self.meta, self.options,
+                                                  self.base_key, self._counter, self.acc,
+                                                  self.record)
+            else:
+                body = lambda: graphs.wavefront_step(self.dev, self.meta, self.options,
+                                                     self.base_key, self._counter, self.acc,
+                                                     self.dir_acc, self.cache)
+            self.graph = graphs.Captured(body, self._graph_pool)
+        for _ in range(num_iters):
+            self.graph.replay()
 
     def render(self, iterations: int | None = None, progress=None,
                batch: int = 16) -> np.ndarray:

@@ -252,13 +252,19 @@ def _host_build(tmp_path_factory, source: str, launch: re.Pattern, loop: str, na
     return lib
 
 
+# The WORDS build's one-thread words kernel, called in place on the host.
+WORDS_LAUNCH = ("k5_iteration_words<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(key0, key1, "
+                "iteration_at,\n" + " " * 71 + "words);")
+
+
 @pytest.fixture(scope="module")
 def host_k5(tmp_path_factory):
     lib = _host_build(
         tmp_path_factory, "bounce.cu",
         re.compile(r"kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>\(stream\)>>>\((.*?)\);",
                    re.S),
-        K5_LOOP, "k5host")
+        K5_LOOP, "k5host",
+        replace=((WORDS_LAUNCH, "k5_iteration_words(key0, key1, iteration_at, words);"),))
     lib.k5_bounce.restype, lib.k5_bounce.argtypes = _build.SIGNATURES["k5_bounce"]
     return lib
 
@@ -267,12 +273,12 @@ def host_k5(tmp_path_factory):
 def host_k6(tmp_path_factory):
     lib = _host_build(
         tmp_path_factory, "prng.cu",
-        re.compile(r"k6_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>\(stream\)>>>\((.*?)\);",
+        re.compile(r"kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>\(stream\)>>>\((.*?)\);",
                    re.S),
         r"(void)stream; gridDim = grid; blockDim.x = THREADS;"
         r" for (unsigned y_ = 0; y_ < grid.y; ++y_) for (unsigned b_ = 0; b_ < grid.x; ++b_)"
         r" for (int t_ = 0; t_ < THREADS; ++t_)"
-        r" { blockIdx.x = b_; blockIdx.y = y_; threadIdx.x = t_; k6_kernel(\1); }", "k6host")
+        r" { blockIdx.x = b_; blockIdx.y = y_; threadIdx.x = t_; kernel(\1); }", "k6host")
     lib.k6_uniforms.restype, lib.k6_uniforms.argtypes = _build.SIGNATURES["k6_uniforms"]
     return lib
 
@@ -357,8 +363,8 @@ def test_host_build_of_k5_matches_plain(scene, mode, res, host_k5, monkeypatch):
         err = host_k5.k5_bounce(
             rays.data_ptr(), record.data_ptr(), dev.face_gather.data_ptr(),
             dev.cluster_tree.data_ptr(), acc_k.data_ptr(), visits.data_ptr(), stats.data_ptr(),
-            n, 0, n, DEPTH, it, int(mode == "pallas"), ikey[0], ikey[1], seed, bounds.shape[1],
-            megakernel.tree_depth(bounds.shape[1]), None)
+            n, 0, n, DEPTH, it, int(mode == "pallas"), ikey[0], ikey[1], seed, None, None,
+            bounds.shape[1], megakernel.tree_depth(bounds.shape[1]), None)
         assert err == 0
     differ = (acc_k[0:3] != acc_p[0:3]).any(dim=0).nonzero().squeeze(1)
     for p in differ.tolist():  # the one allowance: an exact-t tie on the plain path
@@ -388,7 +394,7 @@ def test_host_build_of_k5_matches_plain(scene, mode, res, host_k5, monkeypatch):
 def test_host_build_of_k6_matches_plain(seed, k, host_k6):
     n = 2048 + 333
     out = torch.full((k, n), float("nan"))
-    assert host_k6.k6_uniforms(seed, out.data_ptr(), k, n, 0, None) == 0
+    assert host_k6.k6_uniforms(seed, out.data_ptr(), k, n, 0, 0, 0, None, None) == 0
     assert torch.equal(out, prng.uniforms_reference(seed, k, n))
 
 
@@ -426,7 +432,7 @@ def test_host_k5_pixel_ranges(mode, host_k5):
         err = host_k5.k5_bounce(
             rays.data_ptr(), record.data_ptr(), dev.face_gather.data_ptr(),
             dev.cluster_tree.data_ptr(), acc.data_ptr(), visits.data_ptr(), None, n, p0, count,
-            DEPTH, it, int(mode == "pallas"), ikey[0], ikey[1], seed, bounds.shape[1],
+            DEPTH, it, int(mode == "pallas"), ikey[0], ikey[1], seed, None, None, bounds.shape[1],
             megakernel.tree_depth(bounds.shape[1]), None)
         assert err == 0
 
@@ -475,6 +481,69 @@ def test_host_build_of_k6_column_range(col0, host_k6):
     whole block bit for bit, across 2048-column stream words."""
     k, n = 7, 1500
     out = torch.full((k, n), float("nan"))
-    assert host_k6.k6_uniforms(11, out.data_ptr(), k, n, col0, None) == 0
+    assert host_k6.k6_uniforms(11, out.data_ptr(), k, n, col0, 0, 0, None, None) == 0
     assert torch.equal(out, prng.uniforms_reference(11, k, col0 + n)[:, col0:])
     assert torch.equal(out, prng.uniforms_reference(11, k, n, col0=col0))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_host_build_of_k6_reads_its_seed_from_memory(seed, host_k6):
+    """The WORDS build, the iteration read from an int64 in memory (the
+    capture route's) and the seed derived from it and the base key, equals
+    the by-value build at ``randint(iteration_key(base, iteration))`` and
+    the plain version bit for bit; the by-value seed is then ignored."""
+    k, n = 7, 2048 + 333
+    base = rng.make_key(seed)
+    for it in (1, 2, 77, 2**31 - 1):
+        at = torch.tensor([it], dtype=torch.int64)
+        out = torch.full((k, n), float("nan"))
+        assert host_k6.k6_uniforms(12345, out.data_ptr(), k, n, 40, *base, at.data_ptr(),
+                                   None) == 0
+        want = torch.full((k, n), float("nan"))
+        assert host_k6.k6_uniforms(rng.randint(rng.iteration_key(base, it)), want.data_ptr(), k,
+                                   n, 40, 0, 0, None, None) == 0
+        assert torch.equal(out, want)
+        assert torch.equal(out, prng.uniforms_reference((base, torch.tensor(it)), k, n, col0=40))
+
+
+@pytest.mark.parametrize("mode", ["threefry", "pallas"])
+def test_host_k5_words_build_equals_by_value(mode, host_k5):
+    """The WORDS build, the iteration read from an int64 in memory and its
+    key and K6 seed derived from the base key into the words scratch (by
+    its one-thread kernel), equals the by-value build on the same rays bit
+    for bit, iteration 1 (the AOVs) and 2; the by-value iteration and seed
+    are then ignored. It refuses counters, ranges and a missing scratch."""
+    res = 23
+    dev, meta = _scene("cornellShip", res)
+    options = RenderOptions(megakernel=True, bounce_megakernel=True, rng="auto")
+    n, key = res * res, rng.make_key(8)
+    record = megakernel.scene_record(meta, dev.camera)
+    bounds = dev.cluster_bounds
+    init = torch.rand((9, n), generator=torch.Generator().manual_seed(6))
+    acc_v, acc_w = init.clone(), init.clone()
+    counter = int(mode == "pallas")
+    args = lambda acc, rays: (rays.data_ptr(), record.data_ptr(), dev.face_gather.data_ptr(),
+                              dev.cluster_tree.data_ptr(), acc.data_ptr())
+    tail = (bounds.shape[1], megakernel.tree_depth(bounds.shape[1]), None)
+    for it in (1, 2):
+        ikey = rng.iteration_key(key, it)
+        seed = rng.randint(ikey) if counter else 0
+        U = (prng.uniforms_reference(seed, 4, n) if counter else rng.uniform(ikey, (4, n)))
+        o, d = pathtrace.generate_camera_rays(dev.camera, meta.resolution, options, U)
+        rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z]).contiguous()
+        assert host_k5.k5_bounce(*args(acc_v, rays), None, None, n, 0, n, DEPTH, it, counter,
+                                 ikey[0], ikey[1], seed, None, None, *tail) == 0
+        at = torch.tensor([it], dtype=torch.int64)
+        words = torch.zeros(4, dtype=torch.int64)
+        assert host_k5.k5_bounce(*args(acc_w, rays), None, None, n, 0, n, DEPTH, 99, counter,
+                                 *key, 12345, at.data_ptr(), words.data_ptr(), *tail) == 0
+        assert words.tolist() == [*ikey, rng.randint(ikey), it]
+    assert torch.equal(acc_w, acc_v) and not torch.equal(acc_v, init)
+    visits = torch.zeros(n, dtype=torch.int32)
+    w = words.data_ptr()
+    assert host_k5.k5_bounce(*args(acc_w, rays), visits.data_ptr(), None, n, 0, n, DEPTH, 2,
+                             counter, *key, 0, at.data_ptr(), w, *tail) != 0
+    assert host_k5.k5_bounce(*args(acc_w, rays), None, None, n, 1, n - 1, DEPTH, 2, counter,
+                             *key, 0, at.data_ptr(), w, *tail) != 0
+    assert host_k5.k5_bounce(*args(acc_w, rays), None, None, n, 0, n, DEPTH, 2, counter,
+                             *key, 0, at.data_ptr(), None, *tail) != 0

@@ -17,8 +17,8 @@ import pathlib
 import pytest
 import torch
 
+from mygpuraytracer_tpu_torch import _build
 from mygpuraytracer_tpu_torch.config import RenderOptions
-from mygpuraytracer_tpu_torch.ops import mesh_hit as mh
 from mygpuraytracer_tpu_torch.render import Renderer
 from mygpuraytracer_tpu_torch.scene import load_scene
 from mygpuraytracer_tpu_torch.scene.builtin import cornell_box
@@ -43,12 +43,12 @@ def _scene(name):
 
 def _render(name, **opts):
     """The accumulators after ITERS iterations on the card, and the mesh
-    kernel's launches."""
+    kernel's launches counted there (a graph's replays' too)."""
     r = Renderer(_scene(name), RenderOptions(**opts), seed=1, device="cuda")
-    mh.LAUNCHES = 0
+    _build.zero_launches_on_device()
     r.render(iterations=ITERS)
     torch.cuda.synchronize()
-    return r.acc.clone(), mh.LAUNCHES
+    return r.acc.clone(), _build.launches_on_device("mesh_hit")
 
 
 @pytest.mark.requires_cuda

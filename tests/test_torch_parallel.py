@@ -37,7 +37,7 @@ from mygpuraytracer_tpu_torch.ops import prng, rng
 from mygpuraytracer_tpu_torch.parallel import (Mesh, make_mesh, make_mesh_2d,
                                                render_multichip_sample, sharded_render_step)
 from mygpuraytracer_tpu_torch.parallel.mesh import psum, replicate
-from mygpuraytracer_tpu_torch.render import Renderer
+from mygpuraytracer_tpu_torch.render import Renderer, megakernel
 from mygpuraytracer_tpu_torch.scene import load_scene
 from mygpuraytracer_tpu_torch.scene.builtin import cornell_box, cornell_glass
 from test_torch_k5_host import REPO
@@ -111,6 +111,43 @@ def test_pixel_mode_matches_jax_sequential(mega, mesh):
     jr.render(iterations=2)
     np.testing.assert_allclose(image.gather().numpy(), _rows(jr.image), **TOL)
     np.testing.assert_allclose(albedo.gather().numpy(), _rows(jr.albedo), **TOL)
+
+
+@pytest.mark.parametrize("mega", [False, True])
+def test_pixel_mode_after_move_camera_equals_fresh(mega, mesh, monkeypatch):
+    """The pixel-sharded step, given a Renderer's scene again after
+    ``move_camera`` (which writes the camera in place), renders at the new
+    camera: bitwise against a fresh Renderer's scene at that camera, and
+    K1's launches take the records of the new camera (the CPU's plain K1
+    reads the camera itself, the kernel reads the record)."""
+    kw = dict(resolution=(16, 16), iterations=1, depth=3)
+    position = [0.5, 4.0, 9.0]
+    records = []
+    accumulate = megakernel.accumulate
+    monkeypatch.setattr(megakernel, "accumulate", lambda *a, record=None, **k: (
+        records.append(record), accumulate(*a, record=record, **k))[1])
+
+    def render(r, step_fn=None):
+        step, make_state = sharded_render_step(r.meta, r.options, mesh)
+        image, albedo, cache = make_state()
+        records.clear()
+        return (step_fn or step)(r.dev, image, albedo, cache, 1, r.base_key)[0].gather(), step
+
+    r = Renderer(cornell_box(**kw), RenderOptions(megakernel=mega), seed=3, device="cpu")
+    before, step_fn = render(r)
+    r.move_camera(position=position)
+    moved, _ = render(r, step_fn)
+    moved_records = list(records)
+    scene = cornell_box(**kw)
+    scene.state.camera.position = np.asarray(position, np.float32)
+    scene.state.camera.rebuild()
+    fresh = Renderer(scene, RenderOptions(megakernel=mega), seed=3, device="cpu")
+    want, _ = render(fresh)
+    assert torch.equal(moved, want) and not torch.equal(moved, before)
+    if mega:
+        assert len(moved_records) == mesh.size
+        assert all(torch.equal(rec, megakernel.scene_record(fresh.meta, fresh.dev.camera))
+                   for rec in moved_records)
 
 
 def test_pixel_mode_matches_jax_sharded_step(mesh, jax_mesh):

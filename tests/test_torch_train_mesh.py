@@ -12,9 +12,10 @@ Tolerances, those of ``test_torch_train_step.py``: float32 loss rtol 1e-5
 against JAX's sharded loss and the port's single device; gradients within
 1e-5 x the largest |gradient| of the port's single-device gradients of the
 whole batch, and for ``l1`` of JAX's sharded ones (at this batch of 8 the
-port's own single-device ``l1_msssim`` float32 gradients lie 3.4e-4 x from
-float64, JAX's 1.4e-5 x: the mesh is held to the function the port
-computes on one device); parameters after two steps within 2 x the sum of
+port's and JAX's float32 ``l1_msssim`` gradients each lie 3.4e-4 x from
+float64, whose ReLU and max-pool decisions flip at near-ties, and within
+2e-5 x of each other, tests/test_torch_train_grad_parity.py: the mesh is
+held to the function the port computes on one device); parameters after two steps within 2 x the sum of
 the learning rates of JAX's (Adam turns a near-zero gradient into +-lr);
 per-example validation losses rtol 1e-5.
 
@@ -140,10 +141,11 @@ def test_mesh_loss_and_grads_match_jax(size, jax_grads):
 @pytest.mark.parametrize("size", [2, 4])
 def test_mesh_msssim_grads_match_single_device(size):
     """``l1_msssim`` (the default): the loss and the gradients against the
-    port's single device (rtol 1e-5; 1e-5 x the largest gradient). Its
-    float32 gradients at this batch lie 3.4e-4 x from a float64 evaluation
-    on the port's single device and 1.4e-5 x on JAX's, so they are not
-    held to JAX's here; the loss is, by test_mesh_steps_match_jax_8_device_steps."""
+    port's single device (rtol 1e-5; 1e-5 x the largest gradient). JAX's
+    are held to the port's single device by
+    tests/test_torch_train_grad_parity.py (float64 is no yardstick at this
+    batch: both float32 sides lie 3.4e-4 x from it); the loss is held to
+    JAX's by test_mesh_steps_match_jax_8_device_steps."""
     x, y = batch(21, n=BATCH)
     params = init_unet_params(6, seed=7)
     cfg = TrainConfig(in_channels=6, precision="float32")

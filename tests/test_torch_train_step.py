@@ -2,10 +2,11 @@
 from the same JAX-made weights (``params_from_jax``) on one seeded batch.
 
 Tolerances: ``float32`` loss rtol 1e-5 and every gradient within
-1e-5 x the largest |gradient| of the net. Under ``l1_msssim`` the JAX
-step's own gradients are 1.4e-5 x that from a float64 evaluation (the
-variance estimators cancel), so there the port's gradients are held within
-1e-5 x of the same step in float64 and within 2e-5 x of JAX's. ``mixed``
+1e-5 x the largest |gradient| of the net. Under ``l1_msssim`` JAX's float32
+SSIM gradient lies 1.6e-5 x its largest value from float64 (the port's
+1.0e-5 x; tests/test_torch_train_grad_parity.py), and the backward carries
+that difference, so there the port's gradients are held within 1e-5 x of
+the same step in float64 and within 2e-5 x of JAX's. ``mixed``
 (bfloat16 activations on both sides, whose convolutions accumulate in other
 orders) loss rtol 2e-2. The preprocess (all four packings) atol 1e-6; the per-crop
 autoexposure rtol 1e-5; the per-example validation losses rtol 1e-5.
