@@ -1,0 +1,11 @@
+"""Device milliseconds of K1 (csrc/megakernel.cu, kernel ``k1_kernel``) per
+iteration, over the traced render slice; nothing where it did not run."""
+
+KERNEL = "k1_kernel"
+
+
+def read(t):
+    s = t.device_s(KERNEL, ("render",))
+    if not t.iterations or s <= 0:
+        return None
+    return 1e3 * s / t.iterations
