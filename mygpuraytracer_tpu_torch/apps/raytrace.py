@@ -37,6 +37,7 @@ import numpy as np
 
 from ..parallel.mesh import make_mesh
 from ..utils.platform import add_device_flag, resolve_device
+from ..utils.profiling import PhaseTimer, named_scope
 
 
 def parse_args(argv=None):
@@ -105,29 +106,30 @@ def mirror_x(img: np.ndarray) -> np.ndarray:
 
 def denoise_beauty(beauty: np.ndarray, albedo: np.ndarray, device="cuda"):
     """CPUdenoise equivalent (main.cpp:167-218): RT filter, LDR,
-    color + albedo, on ``device``; returns (output, timings dict)."""
+    color + albedo, on ``device``; returns (output, timings dict). The
+    span ``mygpurt.filter`` covers it all, its phases ``.device``,
+    ``.init`` and ``.execute`` the three parts the timings report."""
     from ..denoise import Device
 
-    timings = {}
-    t0 = time.perf_counter()
-    dev = Device(str(device))
-    dev.commit()
-    timings["device_init_ms"] = (time.perf_counter() - t0) * 1000
-
-    t0 = time.perf_counter()
-    f = dev.new_filter("RT")
-    f.set_image("color", beauty.astype(np.float32))
-    f.set_image("albedo", albedo.astype(np.float32))
-    output = np.zeros_like(beauty, np.float32)
-    f.set_image("output", output)
-    f.commit()
-    timings["filter_init_ms"] = (time.perf_counter() - t0) * 1000
-
-    t0 = time.perf_counter()
-    f.execute()  # copies the result to the host: waits for the device
-    timings["denoise_ms"] = (time.perf_counter() - t0) * 1000
-    timings["random_weights"] = f.using_random_weights
-    return output, timings
+    timer = PhaseTimer()
+    with named_scope("mygpurt.filter"):
+        with timer.phase("mygpurt.filter.device"):
+            dev = Device(str(device))
+            dev.commit()
+        with timer.phase("mygpurt.filter.init"):
+            f = dev.new_filter("RT")
+            f.set_image("color", beauty.astype(np.float32))
+            f.set_image("albedo", albedo.astype(np.float32))
+            output = np.zeros_like(beauty, np.float32)
+            f.set_image("output", output)
+            f.commit()
+        with timer.phase("mygpurt.filter.execute"):
+            f.execute()  # copies the result to the host: waits for the device
+    ms = timer.phases
+    return output, dict(device_init_ms=ms["mygpurt.filter.device"],
+                        filter_init_ms=ms["mygpurt.filter.init"],
+                        denoise_ms=ms["mygpurt.filter.execute"],
+                        random_weights=f.using_random_weights)
 
 
 def _render_multichip(r, options, iterations, mode, log) -> int:

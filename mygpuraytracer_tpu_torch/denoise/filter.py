@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import Mesh, sum_onto
+from ..utils.profiling import named_scope
 from . import color as color_mod
 from . import weights as weights_mod
 from .unet import UNET_ALIGNMENT, UNET_RECEPTIVE_FIELD, UNet, net_dtype, no_tf32, round_up
@@ -767,8 +768,9 @@ class Filter:
         format, cast once per change of weights or format."""
         dtype = self._network_dtype()
         if self._net is None or self._net.convs["enc_conv0"].weight.dtype != dtype:
-            self._net = UNet.from_tza(self._tensors).to(
-                device=self.device.torch_device, dtype=dtype).eval()
+            with named_scope("mygpurt.filter.build"):
+                self._net = UNet.from_tza(self._tensors).to(
+                    device=self.device.torch_device, dtype=dtype).eval()
         return self._net
 
     def _network_on(self, device: torch.device) -> UNet:

@@ -18,6 +18,7 @@ import torch
 from ..denoise import color as color_mod
 from ..denoise import weights as weights_mod
 from ..denoise.unet import UNET_ALIGNMENT, UNet, net_dtype, no_tf32, round_up
+from ..utils.profiling import named_scope
 
 
 def denoise_accumulator(
@@ -59,7 +60,8 @@ def denoise_accumulator(
 
     dtype = dtype or net_dtype(dev)
     if any(p.dtype != dtype or p.device != dev for p in net.parameters()):
-        net = copy.deepcopy(net).to(device=dev, dtype=dtype)
+        with named_scope("mygpurt.denoise.cast"):
+            net = copy.deepcopy(net).to(device=dev, dtype=dtype)
     x = torch.cat(chans, dim=-1).permute(2, 0, 1)[None].to(dtype)
     with torch.inference_mode(), no_tf32():
         y = net(x)[0].permute(1, 2, 0).float()
@@ -77,4 +79,6 @@ def denoise_accumulator(
 def load_denoiser(name: str = "rt_ldr_alb", device="cuda") -> tuple[UNet, bool]:
     """Returns (float32 net on ``device``, using_random_weights)."""
     tensors, random_init = weights_mod.load_default_params(name)
-    return UNet.from_tza(tensors).to(device), random_init
+    with named_scope("mygpurt.denoise.build"):
+        net = UNet.from_tza(tensors).to(device)
+    return net, random_init

@@ -55,6 +55,7 @@ from ..ops import rng
 from ..ops.trace import uses_mesh_tiers
 from ..scene.device_scene import build_device_scene, camera_params
 from ..scene.structs import GeomType, Scene
+from ..utils.profiling import named_scope
 from ..utils.timer import PerformanceTimer
 from . import graphs, megakernel
 from .pathtrace import (accumulate_sample, cache_tensors, clear_cache, make_empty_cache,
@@ -128,7 +129,7 @@ class Renderer:
         self.options = _resolve_auto_options(self.options, scene, self.meta, self.device)
         self.options = _resolve_winner_table(self.options, self.device)
         self.base_key = rng.make_key(seed)
-        self.timer = PerformanceTimer()
+        self.timer = PerformanceTimer(self.device)
         self.use_megakernel = bool(
             self.options.megakernel
             and not self.options.dir_aov
@@ -214,17 +215,18 @@ class Renderer:
         return self.iteration
 
     def _eager(self, start: int, num_iters: int) -> None:
-        if self.use_megakernel:
-            megakernel.accumulate(self.dev, self.meta, self.options, self.acc, start, num_iters,
-                                  self.base_key, record=self.record)
-            return
-        for it in range(start, start + num_iters):
-            out = render_sample(self.dev, self.meta, self.options, it, self.base_key,
-                                self.cache)
-            accumulate_sample(self.acc, out, it, self.dir_acc)
-            if out.cache is not None and out.cache is not self.cache:
-                for kept, new in zip(cache_tensors(self.cache), cache_tensors(out.cache)):
-                    kept.copy_(new)
+        with named_scope("mygpurt.step.eager"):
+            if self.use_megakernel:
+                megakernel.accumulate(self.dev, self.meta, self.options, self.acc, start,
+                                      num_iters, self.base_key, record=self.record)
+                return
+            for it in range(start, start + num_iters):
+                out = render_sample(self.dev, self.meta, self.options, it, self.base_key,
+                                    self.cache)
+                accumulate_sample(self.acc, out, it, self.dir_acc)
+                if out.cache is not None and out.cache is not self.cache:
+                    for kept, new in zip(cache_tensors(self.cache), cache_tensors(out.cache)):
+                        kept.copy_(new)
 
     def _replay(self, start: int, num_iters: int) -> None:
         """Iterations ``start`` (>= 2) .. ``start + num_iters - 1``: the
@@ -262,7 +264,8 @@ class Renderer:
         ``progress`` (the cooperative-cancel callback, cf. oidnDenoise's
         progress monitor) is called with the done fraction after each batch;
         rendering stops when it returns False. ``self.timer`` times the
-        call, the device synchronised."""
+        call on the device's stream (CUDA events; the host clock on the
+        CPU) and does not wait for the device."""
         total = iterations if iterations is not None else self.meta.iterations
         self.timer.start()
         done = 0
@@ -272,23 +275,26 @@ class Renderer:
             done += n
             if progress is not None and not progress(done / total):
                 break
-        self.timer.end(sync=self.acc)
+        self.timer.end()
         return self.beauty()
 
     def render_denoised(self, iterations: int | None = None, batch: int = 16,
                         slot: str = "rt_ldr_alb") -> tuple[np.ndarray, np.ndarray]:
         """Render, then denoise on the device. Returns (denoised HxWx3,
         beauty HxWx3). A ``*_nrm`` slot adds the normal AOV as the third
-        feature; an ``rt_hdr*`` slot switches to the HDR packing."""
+        feature; an ``rt_hdr*`` slot switches to the HDR packing. The span
+        ``mygpurt.denoise`` covers the denoiser's load and enqueue, not the
+        copies to the host."""
         from .denoise_fused import denoise_accumulator, load_denoiser
 
         self.render(iterations=iterations, batch=batch)
-        net, self.denoiser_random_weights = load_denoiser(slot, self.device)
-        out = denoise_accumulator(
-            self.acc[0:3], self.acc[3:6], self.iteration, net, self.meta.resolution,
-            normal=self.acc[6:9] if slot.endswith("_nrm") else None,
-            hdr=slot.startswith("rt_hdr"),
-        )
+        with named_scope("mygpurt.denoise"):
+            net, self.denoiser_random_weights = load_denoiser(slot, self.device)
+            out = denoise_accumulator(
+                self.acc[0:3], self.acc[3:6], self.iteration, net, self.meta.resolution,
+                normal=self.acc[6:9] if slot.endswith("_nrm") else None,
+                hdr=slot.startswith("rt_hdr"),
+            )
         return out.cpu().numpy(), self.beauty()
 
     # -- outputs ----------------------------------------------------------------

@@ -4,9 +4,15 @@ The port's counterpart of ``mygpuraytracer_tpu/utils/profiling.py``: the
 reference's instrumentation (the cudaEvent timer around the bounce loop,
 apps/src/timer.h; OIDN's phase timers; the VTune pause/resume hooks,
 oidnDenoise.cpp:11-13) as a ``torch.profiler`` trace exported for Chrome's
-trace viewer (chrome://tracing, Perfetto), named ranges that show in it
-(and as NVTX ranges on CUDA, for Nsight), and phase timers that synchronise
-the device before reading the clock.
+trace viewer (chrome://tracing, Perfetto), the port's spans (``named_scope``),
+which show in it, and phase timers that synchronise the device before
+reading the clock and are spans too.
+
+The port opens its spans where the work happens, each named ``mygpurt.*``:
+``mygpurt.step.eager`` (``Renderer._eager``), ``mygpurt.denoise`` and its
+``.build`` and ``.cast`` (the fused denoise), ``mygpurt.filter``, its
+``.build`` and its phases ``.device``, ``.init`` and ``.execute``
+(``apps/raytrace.py::denoise_beauty``, ``Filter._network``).
 """
 
 from __future__ import annotations
@@ -38,25 +44,24 @@ def trace(log_dir: str | None = None):
         os.path.join(log_dir, f"trace_{os.getpid()}_{int(time.time() * 1000)}.json"))
 
 
-@contextlib.contextmanager
+_NO_SPAN = contextlib.nullcontext()
+
+
 def named_scope(name: str):
-    """Annotate a region: a ``record_function`` range in the profiler's
-    trace, and an NVTX range on a CUDA machine."""
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+    """A span: a ``record_function`` range on the profiler's timeline (the
+    one its device events are on) while a profiler is active, else nothing:
+    the check costs a small fraction of what opening a range costs. Under
+    ``torch.autograd.profiler.emit_nvtx()`` the profiler is active and its
+    ranges are NVTX ranges, for Nsight."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 class PhaseTimer:
     """Accumulating per-phase wall timers with a device sync: the
     reference's deviceInit/filterInit/denoise phase prints
-    (main.cpp:184-218)."""
+    (main.cpp:184-218). Each phase is a span of its name."""
 
     def __init__(self):
         self.phases: dict[str, float] = {}
@@ -67,14 +72,15 @@ class PhaseTimer:
         """Time the block; ``sync`` (a tensor, or a tuple or list of them)
         has its CUDA device synchronised before the clock is read."""
         t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                _synchronize(sync)
-            ms = (time.perf_counter() - t0) * 1000
-            self.phases[name] = self.phases.get(name, 0.0) + ms
-            self.counts[name] = self.counts.get(name, 0) + 1
+        with named_scope(name):
+            try:
+                yield
+            finally:
+                if sync is not None:
+                    _synchronize(sync)
+                ms = (time.perf_counter() - t0) * 1000
+                self.phases[name] = self.phases.get(name, 0.0) + ms
+                self.counts[name] = self.counts.get(name, 0) + 1
 
     def report(self) -> str:
         lines = []

@@ -357,6 +357,7 @@ def test_phase_timer_reports_like_jax():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with trace(str(tmp_path / "tr")) as d:
+        assert torch.autograd._profiler_enabled()  # so the gated span opens
         with named_scope("my_region"):
             torch.ones(64).sum()
     files = os.listdir(d)
