@@ -1706,7 +1706,7 @@ def graph_phase(device) -> None:
     r = kept["cornellShipTex"]
     r.reset()
     r.step_many(3)
-    captured = r.graph
+    captured, captured_first = r.graph, r.graph_first
     r.move_camera(position=GRAPH_MOVE)
     r.step_many(2)
     moved = mesh_scene("cornellShipTex")
@@ -1717,7 +1717,8 @@ def graph_phase(device) -> None:
     require_equal("graph_move_camera", r.acc, fresh.acc)
     phase("graph", check="move_camera", scene="cornellShipTex",
           position="/".join(f"{x:g}" for x in GRAPH_MOVE), iterations=2,
-          bitwise_vs_fresh=True, graph_kept=r.graph is captured)
+          bitwise_vs_fresh=True, graph_kept=r.graph is captured,
+          first_graph_kept=captured_first is not None and r.graph_first is captured_first)
 
 
 def one_train_step(cfg: TrainConfig, device, x: np.ndarray, y: np.ndarray, params: dict,

@@ -19,13 +19,21 @@ what it reads must stay where it was and change only on the device:
   camera's (which ``Renderer.move_camera`` overwrites in place) and K5's
   scene record;
 - no value goes back to the host: the bounce loop has no host guard
-  (render/pathtrace.py), and iteration 1, which fills the AOVs and the
-  cache, runs eagerly before the first capture (also its warm-up: the
-  kernel libraries load, the allocator's workspaces exist).
+  (render/pathtrace.py);
+- iteration 1 writes the AOVs and fills the cache, work the later
+  iterations must not pay, so on the wavefront route it is a graph of its
+  own, and "first" is fixed when it is captured, not read from the
+  counter.
 
-Two steps are captured, one iteration each: :func:`wavefront_step` (one
-wavefront iteration) and :func:`bounce_step` (one K5-route iteration: K6's
-raygen uniforms, the camera rays and one K5 launch). Which one a Renderer
+Three steps are captured, one iteration each: :func:`wavefront_first_step`
+(the wavefront's iteration 1, replayed after every ``reset`` or
+``move_camera``), :func:`wavefront_step` (a later wavefront iteration) and
+:func:`bounce_step` (a later K5-route iteration: K6's raygen uniforms, the
+camera rays and one K5 launch). A Renderer's first iteration 1 runs
+eagerly, as the captures' warm-up (the kernel libraries load, the
+allocator's workspaces and the wrappers' device counts exist), and the
+wavefront's first-iteration graph is captured right after it; the K5
+route's iteration 1 stays eager (a few launches). Which route a Renderer
 takes is decided up front from its options (``Renderer.graph_route``); a
 capture or replay error raises, and nothing falls back to the eager path.
 :func:`disabled` runs the eager path on purpose, as ``jax.disable_jit()``
@@ -46,7 +54,7 @@ import time
 import torch
 
 from . import megakernel
-from .pathtrace import accumulate_sample, render_sample
+from .pathtrace import accumulate_sample, render_sample, store_cache
 
 _disabled = 0
 
@@ -83,6 +91,21 @@ class Captured:
 
     def replay(self) -> None:
         self.graph.replay()
+
+
+def wavefront_first_step(dev, meta, options, base_key, counter: torch.Tensor,
+                         acc: torch.Tensor, dir_acc: torch.Tensor, cache) -> None:
+    """The capture route's wavefront iteration 1: iteration ``counter`` (a
+    0-dim int64 tensor, set to 1) through ``render_sample`` as the first,
+    its color added into ``acc`` (zeroed by ``reset``) and ``dir_acc``,
+    its AOVs written into ``acc[3:9]`` and bounce 0's hit into the
+    first-bounce cache ``cache`` (or None), all in place; then
+    ``counter += 1`` in place. On the CPU it runs eagerly and computes what
+    ``render_sample`` and ``accumulate_sample`` compute at the int 1."""
+    out = render_sample(dev, meta, options, counter, base_key, cache, first=True)
+    accumulate_sample(acc, out, counter, dir_acc, first=True)
+    store_cache(cache, out)
+    counter += 1
 
 
 def wavefront_step(dev, meta, options, base_key, counter: torch.Tensor, acc: torch.Tensor,

@@ -48,9 +48,12 @@ guard relies on. No value is read back to the host to decide it.
 
 ``iteration`` is an int or, on the capture route of the Renderer's CUDA
 graphs (render/graphs.py), a 0-dim int64 tensor: an iteration counted on
-the device, whose key and uniforms are computed there. The Renderer runs
-iteration 1 eagerly, so a counted iteration is never the first
-(:func:`is_first`).
+the device, whose key and uniforms are computed there. Whether it is the
+first, which writes the AOVs and fills the first-bounce cache, is the
+``first`` flag (default :func:`is_first`): the wavefront route's graph of
+iteration 1 (``graphs.wavefront_first_step``) passes ``first=True`` with
+the counter at 1; its graph of every later iteration, and the K5 route's,
+leave the default, under which a counted iteration is never the first.
 
 Every function takes an optional pixel range ``pixels = (p0, count)``: the
 lanes are then the image's pixels p0 .. p0 + count - 1 and every [.., N]
@@ -93,9 +96,10 @@ class SampleOutput(NamedTuple):
 
 
 def is_first(iteration) -> bool:
-    """Whether ``iteration`` is iteration 1, which writes the AOVs and fills
-    the first-bounce cache. An iteration counted on the device (a tensor)
-    is a later one: the capture route runs iteration 1 eagerly."""
+    """The ``first`` flag's default: whether ``iteration`` is the int 1. An
+    iteration counted on the device (a tensor) is taken as a later one,
+    since a graph cannot decide on the host from the counter's value: the
+    graph of iteration 1 says ``first=True`` itself."""
     return not isinstance(iteration, torch.Tensor) and iteration == 1
 
 
@@ -110,6 +114,15 @@ def clear_cache(cache: HitSoA) -> None:
     cache.t.fill_(math.inf)
     for t in cache_tensors(cache)[1:]:
         t.zero_()
+
+
+def store_cache(cache: HitSoA | None, out: SampleOutput) -> None:
+    """Copy the sample's first-bounce cache into ``cache`` in place, where
+    the sample filled a new one (iteration 1): the Renderer's cache keeps
+    its storage, which the graphs hold."""
+    if out.cache is not None and out.cache is not cache:
+        for kept, new in zip(cache_tensors(cache), cache_tensors(out.cache)):
+            kept.copy_(new)
 
 
 def make_empty_cache(n: int, device="cuda") -> HitSoA:
@@ -227,10 +240,13 @@ def render_sample(
     base_key: rng.Key,
     cache: HitSoA | None = None,
     pixels: tuple[int, int] | None = None,
+    first: bool | None = None,
 ) -> SampleOutput:
     """One iteration under ``options`` (over the pixel range ``pixels``, or
     the whole image). ``cache`` is the first-bounce cache
-    (``make_empty_cache``; None: none yet); the result carries its update."""
+    (``make_empty_cache``; None: none yet); the result carries its update.
+    ``first``: whether this is iteration 1 (None: :func:`is_first`); the
+    megakernel route takes it from the iteration itself."""
     if options.megakernel and not options.dir_aov:
         from .megakernel import megakernel_sample, supports_megakernel
 
@@ -241,14 +257,15 @@ def render_sample(
         dev, meta, options, iteration, base_key, cache,
         sort=options.sort_by_material and meta.num_geoms > 1 and not options.dir_aov,
         cache_first_bounce=options.first_bounce_cache_active, dir_aov=options.dir_aov,
-        pixels=pixels)
+        pixels=pixels, first=first)
 
 
 def wavefront_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions,
                      iteration, base_key: rng.Key, cache: HitSoA | None = None, *,
                      sort: bool = False, cache_first_bounce: bool = False,
                      dir_aov: bool = False,
-                     pixels: tuple[int, int] | None = None) -> SampleOutput:
+                     pixels: tuple[int, int] | None = None,
+                     first: bool | None = None) -> SampleOutput:
     """One iteration of the wavefront: ``sample_uniforms`` and
     ``intersect_soa`` with the options' mesh settings, then
     :func:`trace_sample` with the wavefront options given here (all off by
@@ -262,7 +279,7 @@ def wavefront_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions,
         mesh_tier=options.mesh_tier, winner_table=options.winner_table, active=active)
     return trace_sample(dev, meta, options, iteration, U, query, cache, sort=sort,
                         cache_first_bounce=cache_first_bounce, dir_aov=dir_aov,
-                        p0=pixels[0] if pixels is not None else 0)
+                        p0=pixels[0] if pixels is not None else 0, first=first)
 
 
 def _shade_rows(U: torch.Tensor, depth: int) -> torch.Tensor:
@@ -278,7 +295,7 @@ def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iter
                  U: torch.Tensor, query: Callable[..., HitSoA],
                  cache: HitSoA | None = None, *, sort: bool = False,
                  cache_first_bounce: bool = False, dir_aov: bool = False,
-                 p0: int = 0) -> SampleOutput:
+                 p0: int = 0, first: bool | None = None) -> SampleOutput:
     """Raygen from the uniforms ``U`` [4 + 3*depth, count] of pixels p0 ..
     p0 + count - 1 (the whole image: p0 = 0, count = N), then the bounce
     loop over ``query(origin, direction, active=None)``, shading and the
@@ -287,7 +304,10 @@ def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iter
     ``sort`` runs the material-sorted bounce (``options.sort_impl``);
     ``cache_first_bounce`` takes bounce 0's hit from ``cache`` after
     iteration 1 (or queries and stores it, at iteration 1 or when ``cache``
-    is None); ``dir_aov`` adds the directional AOV."""
+    is None); ``dir_aov`` adds the directional AOV. ``first``: whether this
+    is iteration 1, which takes the AOVs and fills the cache (None:
+    :func:`is_first`)."""
+    first = is_first(iteration) if first is None else first
     n = U.shape[1]
     depth = meta.trace_depth
     device = U.device
@@ -299,13 +319,13 @@ def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iter
         remaining=torch.full((n,), depth, dtype=torch.int32, device=device),
     )
 
-    if cache_first_bounce and cache is not None and not is_first(iteration):
+    if cache_first_bounce and cache is not None and not first:
         hit0 = cache
     else:
         hit0 = query(o, d)
     new_cache = hit0 if cache_first_bounce else cache
     zero = torch.zeros(n, dtype=torch.float32, device=device)
-    if is_first(iteration):
+    if first:
         albedo = albedo_soa(meta, dev, hit0)
         normal = Vec3(*(torch.where(hit0.hit, c, zero) for c in hit0.normal))
     else:
@@ -358,13 +378,15 @@ def trace_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions, iter
 
 
 def accumulate_sample(acc: torch.Tensor, out: SampleOutput, iteration,
-                      dir_acc: torch.Tensor | None = None) -> None:
+                      dir_acc: torch.Tensor | None = None, first: bool | None = None) -> None:
     """Add one sample into the [9, N] accumulator in place: rows 0-2 sum the
-    color, rows 3-5 and 6-8 take the albedo and normal AOVs at iteration 1.
-    ``dir_acc`` [4, N], if given, sums the dir AOV (direction rows 0-2,
-    luminance row 3) of a sample that has one."""
+    color, rows 3-5 and 6-8 take the albedo and normal AOVs at iteration 1
+    (``first``; None: :func:`is_first`). ``dir_acc`` [4, N], if given, sums
+    the dir AOV (direction rows 0-2, luminance row 3) of a sample that has
+    one."""
+    first = is_first(iteration) if first is None else first
     acc[0:3] += torch.stack(out.color)
-    if is_first(iteration):
+    if first:
         acc[3:6] = torch.stack(out.albedo)
         acc[6:9] = torch.stack(out.normal)
     if dir_acc is not None and out.dirmap is not None:

@@ -22,11 +22,14 @@ goes through the mesh tiers: their CUDA kernel on a CUDA device, its plain
 version on the CPU (ops/mesh_hit.py). ``move_camera`` moves the camera and
 resets the accumulation (main.cpp:222-248).
 
-On CUDA, ``step``/``step_many`` replay a captured CUDA graph, as the JAX
+On CUDA, ``step``/``step_many`` replay captured CUDA graphs, as the JAX
 Renderer runs its jitted ``_iteration_step``/``_multi_step``
-(render/graphs.py): iteration 1 runs eagerly, then every iteration is one
-replay of one graph (on the K5 route: K6's raygen uniforms, the camera
-rays and K5). The route is
+(render/graphs.py): every iteration after the first is one replay of one
+graph (on the K5 route: K6's raygen uniforms, the camera rays and K5). The
+Renderer's first iteration 1 runs eagerly, as the captures' warm-up; on
+the wavefront route every later iteration 1, after a ``reset`` or a
+``move_camera``, replays a second graph, of iteration 1 (``graph_first``),
+while the K5 route runs each iteration 1 eagerly. The route is
 chosen up front (``graph_route``): the K1 route is already one launch per
 batch and stays as it is, and a wavefront whose mesh query compacts its
 live lanes (a mesh off the mesh tiers: ``mesh_pallas=False``, or a mesh
@@ -59,7 +62,7 @@ from ..utils.profiling import named_scope
 from ..utils.timer import PerformanceTimer
 from . import graphs, megakernel
 from .pathtrace import (accumulate_sample, cache_tensors, clear_cache, make_empty_cache,
-                        render_sample)
+                        render_sample, store_cache)
 
 def mesh_reach_fraction(scene: Scene, meta, grid: int = 64) -> float:
     """Host-side estimate of the share of camera rays (a grid x grid set of
@@ -136,7 +139,9 @@ class Renderer:
             and megakernel.supports_megakernel(self.meta, self.options)
         )
         self.graph_route = self._graph_route()
-        self.graph: graphs.Captured | None = None  # one iteration, captured at its first use
+        self.graph: graphs.Captured | None = None  # a later iteration, captured at its first use
+        # The wavefront's iteration 1, captured after the first eager one.
+        self.graph_first: graphs.Captured | None = None
         self._graph_pool = None
         self._graph_buffers = None
         self._counter = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -199,13 +204,18 @@ class Renderer:
 
     def step_many(self, num_iters: int) -> int:
         """Run ``num_iters`` MC iterations: one K1 launch where that route
-        applies; else on CUDA, past iteration 1, replays of the captured
-        graphs (``graph_route``); else iteration by iteration (K5: one
-        launch per iteration)."""
+        applies; else on CUDA replays of the captured graphs
+        (``graph_route``): iteration 1 eager the first time and on the K5
+        route, else the wavefront's graph of iteration 1, and every later
+        iteration one graph; else iteration by iteration (K5: one launch
+        per iteration)."""
         start = self.iteration + 1
         if self.graph_route is not None and graphs.enabled():
-            if start == 1 and num_iters > 0:
-                self._eager(1, 1)  # fills the AOVs and the cache; the capture's warm-up
+            if num_iters <= 0:
+                return self.iteration
+            self._drop_graphs_on_new_buffers()
+            if start == 1:
+                self._first()
                 start, num_iters = 2, num_iters - 1
                 self.iteration += 1
             self._replay(start, num_iters)
@@ -224,9 +234,44 @@ class Renderer:
                 out = render_sample(self.dev, self.meta, self.options, it, self.base_key,
                                     self.cache)
                 accumulate_sample(self.acc, out, it, self.dir_acc)
-                if out.cache is not None and out.cache is not self.cache:
-                    for kept, new in zip(cache_tensors(self.cache), cache_tensors(out.cache)):
-                        kept.copy_(new)
+                store_cache(self.cache, out)
+
+    def _drop_graphs_on_new_buffers(self) -> None:
+        """Drop both graphs when a buffer they hold was replaced, so that
+        each is captured anew at its next use."""
+        buffers = [self.acc, self.dir_acc, self._counter, *self.dev.camera]
+        buffers += cache_tensors(self.cache) if self.cache is not None else []
+        buffers += [self.record] if self.record is not None else []
+        held = tuple(t.data_ptr() for t in buffers)
+        if held != self._graph_buffers:
+            self.graph = self.graph_first = None
+            self._graph_buffers = held
+
+    def _capture(self, step, *buffers) -> graphs.Captured:
+        """``step`` (a ``graphs`` step) on the device counter and
+        ``buffers``, captured into the Renderer's pool, which both of its
+        graphs share: each writes its outputs into buffers that outlive
+        both, and they never replay at once."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return graphs.Captured(
+            lambda: step(self.dev, self.meta, self.options, self.base_key, self._counter,
+                         *buffers),
+            self._graph_pool)
+
+    def _first(self) -> None:
+        """Iteration 1: the wavefront's graph of it, replayed; eager on the
+        K5 route and where that graph is not captured yet, which it then
+        is (the eager iteration is its warm-up)."""
+        if self.graph_first is None:
+            self._eager(1, 1)
+            if self.graph_route == "wavefront":
+                self.graph_first = self._capture(graphs.wavefront_first_step, self.acc,
+                                                 self.dir_acc, self.cache)
+            return
+        with named_scope("mygpurt.step.first"):
+            self._counter.fill_(1)
+            self.graph_first.replay()
 
     def _replay(self, start: int, num_iters: int) -> None:
         """Iterations ``start`` (>= 2) .. ``start + num_iters - 1``: the
@@ -234,26 +279,13 @@ class Renderer:
         first use) replayed ``num_iters`` times, each adding one to it."""
         if num_iters <= 0:
             return
-        buffers = [self.acc, self.dir_acc, self._counter, *self.dev.camera]
-        buffers += cache_tensors(self.cache) if self.cache is not None else []
-        buffers += [self.record] if self.record is not None else []
-        held = tuple(t.data_ptr() for t in buffers)
-        if held != self._graph_buffers:  # a buffer was replaced: capture anew
-            self.graph = None
-            self._graph_buffers = held
         self._counter.fill_(start)
         if self.graph is None:
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
             if self.graph_route == "k5":
-                body = lambda: graphs.bounce_step(self.dev, self.meta, self.options,
-                                                  self.base_key, self._counter, self.acc,
-                                                  self.record)
+                self.graph = self._capture(graphs.bounce_step, self.acc, self.record)
             else:
-                body = lambda: graphs.wavefront_step(self.dev, self.meta, self.options,
-                                                     self.base_key, self._counter, self.acc,
-                                                     self.dir_acc, self.cache)
-            self.graph = graphs.Captured(body, self._graph_pool)
+                self.graph = self._capture(graphs.wavefront_step, self.acc, self.dir_acc,
+                                           self.cache)
         for _ in range(num_iters):
             self.graph.replay()
 

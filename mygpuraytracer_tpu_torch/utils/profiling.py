@@ -9,7 +9,9 @@ which show in it, and phase timers that synchronise the device before
 reading the clock and are spans too.
 
 The port opens its spans where the work happens, each named ``mygpurt.*``:
-``mygpurt.step.eager`` (``Renderer._eager``), ``mygpurt.denoise`` and its
+``mygpurt.step.eager`` (``Renderer._eager``), ``mygpurt.step.first`` (the
+replay of the wavefront's graph of iteration 1, ``Renderer._first``),
+``mygpurt.denoise`` and its
 ``.build`` and ``.cast`` (the fused denoise), ``mygpurt.filter``, its
 ``.build`` and its phases ``.device``, ``.init`` and ``.execute``
 (``apps/raytrace.py::denoise_beauty``, ``Filter._network``).

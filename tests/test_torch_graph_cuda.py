@@ -14,7 +14,10 @@ after iteration 1; the kernels' launches counted on the card equal on
 both routes (the replays' included) and equal the eager route's host
 launches; K6 and K5 deriving their words from the iteration in device
 memory equal their by-value launches bit for bit; a moved Renderer equal to
-a fresh one at the new camera.
+a fresh one at the new camera; three moves with ``step_many(3)`` between
+equal to the eager route, the wavefront's graph of iteration 1 kept across
+them; a moved step with no host sync and no host launch of a kernel, its
+launches counted on the card; a replaced buffer recapturing both graphs.
 """
 
 import contextlib
@@ -28,7 +31,7 @@ from mygpuraytracer_tpu_torch import _build
 from mygpuraytracer_tpu_torch.config import RenderOptions
 from mygpuraytracer_tpu_torch.ops import mesh_hit as mh
 from mygpuraytracer_tpu_torch.ops import prng, rng
-from mygpuraytracer_tpu_torch.render import Renderer, graphs, megakernel
+from mygpuraytracer_tpu_torch.render import Renderer, graphs, megakernel, pathtrace
 from mygpuraytracer_tpu_torch.render.camera import generate_camera_rays
 from mygpuraytracer_tpu_torch.scene import load_scene
 from mygpuraytracer_tpu_torch.scene.builtin import cornell_box
@@ -88,11 +91,14 @@ def test_graph_route_bitwise_eager(case):
     assert g.graph_route == route and g.graph is not None and e.graph is None
     assert torch.equal(g.acc, e.acc) and torch.equal(g.dir_acc, e.dir_acc)
     # On the card both routes launch the same kernels; from the host the
-    # graph route launches iteration 1's and records the capture's.
+    # graph route launches iteration 1's and records the captures': on the
+    # wavefront iteration 1's graph and the later iteration's, on K5 the
+    # later iteration's alone.
     assert g_ran == e_ran == e_host, (g_ran, e_ran, e_host)
     first = tuple(x // iters for x in e_host) if "cache" not in case else None
     if first is not None:
-        assert g_host == tuple(2 * x for x in first), (g_host, e_host)
+        times = 3 if route == "wavefront" else 2
+        assert g_host == tuple(times * x for x in first), (g_host, e_host)
     assert (sum(g_ran) > 0) == (name != "cornell")  # the Cornell box runs no kernel
     assert float(g.acc[0:3].sum()) > 0
 
@@ -155,3 +161,95 @@ def test_move_camera_replays_equal_fresh(case):
     fresh = Renderer(scene, RenderOptions(**opts), seed=2, device="cuda")
     fresh.step_many(3)
     assert torch.equal(r.acc, fresh.acc)
+
+
+
+MOVES = ([0.0, 5.0, 9.0], [1.0, 5.5, 9.5], [-1.0, 4.5, 10.0])
+
+
+def _drag(name, opts, eager, replace_acc=False):
+    """``step_many(3)``, then three moves each followed by ``step_many(3)``
+    (with ``replace_acc``, ``acc`` replaced by a copy before the first
+    move). Returns the Renderer, its graphs (of iteration 1, of a later one)
+    before the moves, and its graph of iteration 1 after each move."""
+    r = Renderer(_scene(name), RenderOptions(**opts), seed=1, device="cuda")
+    firsts = []
+    with graphs.disabled() if eager else contextlib.nullcontext():
+        r.step_many(3)
+        before = (r.graph_first, r.graph)
+        if replace_acc:
+            r.acc = r.acc.clone()
+        for position in MOVES:
+            r.move_camera(position=position)
+            r.step_many(3)
+            firsts.append(r.graph_first)
+    torch.cuda.synchronize()
+    return r, before, firsts
+
+
+def _equal_accumulators(g, e):
+    assert torch.equal(g.acc, e.acc) and torch.equal(g.dir_acc, e.dir_acc)
+    if g.cache is not None:
+        assert all(torch.equal(a, b) for a, b in zip(pathtrace.cache_tensors(g.cache),
+                                                     pathtrace.cache_tensors(e.cache)))
+    assert bool(g.acc[3:6].any()) and float(g.acc[0:3].sum()) > 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["cornellShipTex", "cornellShipTex_cache", "cornell_dof_sort",
+                                  "cornell_dir_aov"])
+def test_moved_renderer_replays_first_graph_bitwise_eager(case):
+    _need_cuda()
+    name, opts, _, _ = CASES[case]
+    g, before, firsts = _drag(name, opts, eager=False)
+    e, _, _ = _drag(name, opts, eager=True)
+    assert before[0] is not None and all(f is before[0] for f in firsts)
+    assert e.graph_first is None and e.graph is None
+    _equal_accumulators(g, e)
+
+
+@pytest.mark.requires_cuda
+def test_moved_step_launches_nothing_from_the_host():
+    """After a move, ``step_many(1)`` replays the graph of iteration 1: no
+    host sync, the wrappers' host counters unchanged, the card's counts up
+    by one iteration's launches (those of the same iteration run eagerly),
+    and the same accumulators."""
+    _need_cuda()
+    name, opts, _, _ = CASES["cornellShipTex"]
+    r = Renderer(_scene(name), RenderOptions(**opts), seed=1, device="cuda")
+    r.step_many(2)  # the eager iteration 1 and both captures
+    r.move_camera(position=MOVES[0])
+    torch.cuda.synchronize()
+    host = (mh.LAUNCHES, prng.LAUNCHES)
+    _build.zero_launches_on_device()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r.step_many(1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (mh.LAUNCHES, prng.LAUNCHES) == host
+    ran = tuple(_build.launches_on_device(k) for k in ("mesh_hit", "k6"))
+    acc = r.acc.clone()
+    r.reset()
+    mh.LAUNCHES = prng.LAUNCHES = 0
+    with graphs.disabled():
+        r.step_many(1)
+    torch.cuda.synchronize()
+    assert ran == (mh.LAUNCHES, prng.LAUNCHES) and ran[0] > 0, (ran, mh.LAUNCHES)
+    assert torch.equal(r.acc, acc)
+
+
+@pytest.mark.requires_cuda
+def test_replaced_buffer_recaptures_both_graphs():
+    """``acc`` replaced after both captures: the next iteration 1 runs
+    eagerly and both graphs are captured anew, the new graph of iteration
+    1 then kept across the moves; bitwise the eager route."""
+    _need_cuda()
+    name, opts, _, _ = CASES["cornellShipTex_cache"]
+    g, before, firsts = _drag(name, opts, eager=False, replace_acc=True)
+    e, _, _ = _drag(name, opts, eager=True, replace_acc=True)
+    assert None not in before
+    assert firsts[0] not in (None, before[0]) and all(f is firsts[0] for f in firsts)
+    assert g.graph not in (None, before[1])
+    _equal_accumulators(g, e)

@@ -13,6 +13,16 @@ Tolerances, each stated where it is checked:
   on the Cornell box, cornellShipTex (textured, bump-mapped, the mesh tiers
   as the card runs them), the open-sky shipTexOnly, each sort form, the
   first-bounce cache and the dir AOV;
+- the capture route's iteration 1 (``graphs.wavefront_first_step``, the
+  counter at 1) against the same at the int 1, on the same cases: bitwise
+  on ``acc`` (color and AOVs), ``dir_acc`` and the cache, also after a
+  ``reset`` over its own output; the ``first`` flag's default, for int and
+  counted iterations;
+- the Renderer's graph route with a stand-in graph (the body run at each
+  replay): three moves with ``step_many(3)`` between equal the eager route
+  bitwise, the graph of iteration 1 captured once, after the first eager
+  iteration 1, and a moved frame's step opens ``mygpurt.step.first`` and
+  no ``mygpurt.step.eager``; a replaced buffer drops both graphs;
 - the same iteration against JAX's ``render_sample``: the color rmse <
   1e-3 on the Cornell box (tests/test_torch_render.py's bar, measured 0) and
   bit for bit on the open-sky ship, whose every path ends before the last
@@ -45,6 +55,7 @@ from mygpuraytracer_tpu.scene.device_scene import build_device_scene as jax_buil
 from mygpuraytracer_tpu_torch.config import RenderOptions
 from mygpuraytracer_tpu_torch.ops import prng, rng
 from mygpuraytracer_tpu_torch.render import Renderer, graphs, megakernel, pathtrace
+from mygpuraytracer_tpu_torch.render import renderer as renderer_module
 from mygpuraytracer_tpu_torch.ops.trace import uses_mesh_tiers
 from mygpuraytracer_tpu_torch.scene import builtin, load_scene
 
@@ -175,6 +186,191 @@ def test_capture_route_iteration_is_bitwise_render_sample(case, monkeypatch):
     if opts.dir_aov:
         assert float(dir_acc[3].sum()) > 0
     assert (dead.count > 0) == case.endswith("open_sky")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_first_step_is_bitwise_render_sample(case):
+    """Iteration 1 through ``graphs.wavefront_first_step`` from a counter at
+    1, on a fresh Renderer and again after a ``reset`` over its own output,
+    against ``render_sample`` + ``accumulate_sample`` at the int 1: ``acc``
+    (color and AOVs), ``dir_acc`` and the cache bitwise equal, the counter
+    at 2."""
+    name, res, opts = CASES[case]
+    r = Renderer(_scene(name, res), opts, seed=5, device="cpu")
+    n = res * res
+    acc, dir_acc = torch.zeros((9, n)), torch.zeros((4, n))
+    empty = pathtrace.make_empty_cache(n, "cpu") if r.cache is not None else None
+    out = pathtrace.render_sample(r.dev, r.meta, r.options, 1, r.base_key, empty)
+    pathtrace.accumulate_sample(acc, out, 1, dir_acc)
+    assert (out.cache is not None) == opts.first_bounce_cache_active
+    for _ in range(2):
+        counter = _counter(1)
+        graphs.wavefront_first_step(r.dev, r.meta, r.options, r.base_key, counter, r.acc,
+                                    r.dir_acc, r.cache)
+        assert int(counter) == 2
+        assert torch.equal(r.acc, acc) and torch.equal(r.dir_acc, dir_acc)
+        if r.cache is not None:
+            assert all(torch.equal(a, b) for a, b in zip(pathtrace.cache_tensors(r.cache),
+                                                         pathtrace.cache_tensors(out.cache)))
+            assert torch.isfinite(r.cache.t).any()
+        r.reset()
+    assert acc[3:6].any() and acc[6:9].any()  # the AOVs were taken
+    if opts.dir_aov:
+        assert float(dir_acc[3].sum()) > 0
+
+
+@pytest.mark.parametrize("iteration", [1, 2, "counted_1", "counted_2"])
+def test_first_flag_defaults_to_is_first(iteration):
+    """``first=None`` is ``is_first(iteration)``: the int 1 is the first, a
+    later int and any counted iteration are not; ``render_sample`` and
+    ``accumulate_sample`` give the same with the default and with the flag
+    said outright."""
+    it = _counter(int(iteration[-1])) if isinstance(iteration, str) else iteration
+    want = iteration == 1
+    assert pathtrace.is_first(it) == want
+    r = Renderer(_scene("cornell", 8), RenderOptions(antialiasing=False), seed=3, device="cpu")
+    assert r.options.first_bounce_cache_active
+    accs = []
+    for first in (None, want):
+        acc = torch.zeros((9, 64))
+        cache = pathtrace.make_empty_cache(64, "cpu")
+        pathtrace.store_cache(cache, pathtrace.render_sample(r.dev, r.meta, r.options, 1,
+                                                             r.base_key))  # a filled cache
+        out = pathtrace.render_sample(r.dev, r.meta, r.options, it, r.base_key, cache,
+                                      first=first)
+        pathtrace.accumulate_sample(acc, out, it, first=first)
+        assert (out.cache is not cache) == want  # iteration 1 queries anew, later ones reuse
+        accs.append(acc)
+    assert torch.equal(*accs)
+    assert bool(accs[0][3:9].any()) == want and accs[0][0:3].any()
+
+
+class _StandInGraph:
+    """``graphs.Captured`` on the CPU: the body is kept at the capture and
+    run at each replay; counts the captures."""
+
+    captures = 0
+
+    def __init__(self, body, pool):
+        self.body, self.seconds = body, 0.0
+        type(self).captures += 1
+
+    def replay(self):
+        self.body()
+
+
+MOVES = ([0.0, 5.0, 12.0], [1.0, 5.5, 11.0], [-1.0, 4.5, 11.5])
+STAND_IN = {
+    "cornellShipTex": ("cornellShipTex", 8, RenderOptions(**CARD_MESH)),
+    "cornellShipTex_cache": ("cornellShipTex", 8, RenderOptions(antialiasing=False,
+                                                                **CARD_MESH)),
+    "dof_sort": ("cornell", 12, RenderOptions(depth_of_field=True, antialiasing=False,
+                                              sort_by_material=True)),
+    "dir_aov": ("cornell", 12, RenderOptions(dir_aov=True)),
+}
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    _StandInGraph.captures = 0
+    monkeypatch.setattr(graphs, "Captured", _StandInGraph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 0))
+    return _StandInGraph
+
+
+@pytest.fixture
+def spans(monkeypatch):
+    """The names of the spans the Renderer opens, in order."""
+    opened = []
+
+    def scope(name):
+        opened.append(name)
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(renderer_module, "named_scope", scope)
+    return opened
+
+
+def _graph_renderer(name, res, opts, route="wavefront"):
+    r = Renderer(_scene(name, res), opts, seed=2, device="cpu")
+    r.graph_route = route  # as on CUDA; the stand-in graph runs the body on the CPU
+    return r
+
+
+@pytest.mark.parametrize("case", list(STAND_IN))
+def test_moved_renderer_replays_the_first_graph(case, stand_in, spans):
+    """``step_many(3)``, then three moves each followed by ``step_many(3)``,
+    on the graph route and under ``graphs.disabled()``: every accumulator
+    and the cache bitwise equal after each move's iterations; the graph of
+    iteration 1 captured once, after the first (eager) iteration 1, and
+    replayed after each move, inside ``mygpurt.step.first`` with no
+    ``mygpurt.step.eager``."""
+    name, res, opts = STAND_IN[case]
+    g, e = _graph_renderer(name, res, opts), _graph_renderer(name, res, opts)
+    g.step_many(3)
+    with graphs.disabled():
+        e.step_many(3)
+    assert stand_in.captures == 2 and g.graph_first is not None and g.graph is not None
+    first, later = g.graph_first, g.graph
+    for position in MOVES:
+        g.move_camera(position=position)
+        spans.clear()
+        g.step_many(1)
+        assert spans == ["mygpurt.step.first"]
+        g.step_many(2)
+        e.move_camera(position=position)
+        with graphs.disabled():
+            e.step_many(3)
+        assert g.graph_first is first and g.graph is later and stand_in.captures == 2
+        assert torch.equal(g.acc, e.acc) and torch.equal(g.dir_acc, e.dir_acc)
+        if g.cache is not None:
+            assert all(torch.equal(a, b) for a, b in zip(pathtrace.cache_tensors(g.cache),
+                                                         pathtrace.cache_tensors(e.cache)))
+    assert g.iteration == 3 and g.acc[3:6].any()
+
+
+def test_replaced_buffer_recaptures_both_graphs(stand_in):
+    """A held buffer replaced (here ``acc``) drops both graphs: the next
+    iteration 1 runs eagerly and captures its graph anew, the next later
+    iteration captures its own; a move after it replays the new graph of
+    iteration 1, bitwise as the eager route."""
+    name, res, opts = STAND_IN["cornellShipTex_cache"]
+    g, e = _graph_renderer(name, res, opts), _graph_renderer(name, res, opts)
+    g.step_many(3)
+    first, later = g.graph_first, g.graph
+    g.acc = g.acc.clone()
+    g.reset()
+    g.step_many(3)
+    assert stand_in.captures == 4
+    assert g.graph_first not in (None, first) and g.graph not in (None, later)
+    renewed = g.graph_first
+    g.move_camera(position=MOVES[0])
+    g.step_many(3)
+    assert g.graph_first is renewed and stand_in.captures == 4
+    with graphs.disabled():
+        e.step_many(3)
+        e.reset()
+        e.step_many(3)
+        e.move_camera(position=MOVES[0])
+        e.step_many(3)
+    assert torch.equal(g.acc, e.acc)
+
+
+def test_k5_route_keeps_iteration_1_eager(stand_in, spans):
+    """The K5 route captures no graph of iteration 1: after a move its
+    iteration 1 runs eagerly, then its one graph replays."""
+    opts = RenderOptions(megakernel=True, bounce_megakernel=True, rng="auto")
+    g = _graph_renderer("cornellShip", 8, opts, route="k5")
+    e = _graph_renderer("cornellShip", 8, opts, route="k5")
+    for r, ctx in ((g, contextlib.nullcontext()), (e, graphs.disabled())):
+        with ctx:
+            r.step_many(2)
+            r.move_camera(position=MOVES[0])
+            spans.clear()
+            r.step_many(2)
+        assert spans == ["mygpurt.step.eager"]  # iteration 1, eager on both routes
+    assert g.graph_first is None and stand_in.captures == 1
+    assert torch.equal(g.acc, e.acc)
 
 
 class _DeadBounces:
@@ -369,6 +565,6 @@ def test_steps_are_eager_on_the_cpu():
         r = Renderer(_scene("cornell", 8), RenderOptions(), seed=1, device="cpu")
         with ctx:
             r.step_many(3)
-        assert r.iteration == 3 and r.graph is None
+        assert r.iteration == 3 and r.graph is None and r.graph_first is None
         accs.append(r.acc)
     assert torch.equal(*accs)
