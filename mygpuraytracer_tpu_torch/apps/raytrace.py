@@ -21,9 +21,9 @@ kernel (``--mesh-tier``, ``--mesh-sort``, ``--winner-table``), as do
 ``--sort-by-material`` runs under ``--megakernel auto``: the material sort
 exists only on the wavefront. The beauty is denoised through the Filter API on the same device (``denoise_beauty``).
 ``--multichip sample|pixels`` renders over a mesh of every visible CUDA
-device (parallel/sharded.py): MC iterations split over the devices with one
-psum, or the pixels sharded; with one device visible it logs so and renders
-sequentially, as the JAX app does.
+device (``render_multichip``, parallel/sharded.py): MC iterations split over
+the devices with one psum, or the pixels sharded; with one device visible it
+logs so and renders sequentially, as the JAX app does.
 """
 
 from __future__ import annotations
@@ -132,45 +132,50 @@ def denoise_beauty(beauty: np.ndarray, albedo: np.ndarray, device="cuda"):
                         random_weights=f.using_random_weights)
 
 
-def _render_multichip(r, options, iterations, mode, log) -> int:
-    """Render on a mesh over every visible device into ``r``'s accumulator;
-    returns the iterations done (a remainder that does not divide the mesh
-    falls through to the sequential loop)."""
+def render_multichip(r, options, iterations, mode, log, mesh=None) -> int:
+    """Render on ``mesh`` into ``r``'s accumulator; returns the iterations
+    done (a remainder that does not divide the mesh falls through to the
+    sequential loop). ``mesh`` defaults to every visible CUDA device (off
+    CUDA, the Renderer's device alone); with one device the sequential path
+    renders it all. Sample mode renders iterations 1 .. done, device d its
+    d-th share, and their sum onto the first device replaces ``r``'s
+    accumulator. The span ``mygpurt.multichip`` covers the call."""
     import torch
 
-    from ..parallel.mesh import replicate
     from ..parallel.sharded import render_multichip_sample, sharded_render_step
 
-    mesh = make_mesh() if r.device.type == "cuda" else make_mesh(devices=(r.device,))
+    if mesh is None:
+        mesh = make_mesh() if r.device.type == "cuda" else make_mesh(devices=(r.device,))
     n_dev = mesh.size
     if n_dev < 2:
         log("multichip: single device visible; using the sequential path")
         return 0
-    if mode == "sample":
-        spp = (iterations // n_dev) * n_dev
-        if spp == 0:
+    with named_scope("mygpurt.multichip"):
+        if mode == "sample":
+            spp = (iterations // n_dev) * n_dev
+            if spp == 0:
+                return 0
+            img, alb, nrm = render_multichip_sample(r.dev, r.meta, options, r.base_key, spp,
+                                                    mesh)
+            r.acc = torch.stack([*img, *alb, *nrm]).to(r.device)
+            r.iteration = spp
+            log(f"multichip sample-parallel: {spp} iterations over {n_dev} devices")
+            return spp
+        # pixels: shard the accumulators and the wavefront; run every iteration here
+        w, h = r.meta.resolution
+        if (w * h) % n_dev:
+            log(f"multichip pixels: {w}x{h} does not divide {n_dev} devices; "
+                "using the sequential path")
             return 0
-        img, alb, nrm = render_multichip_sample(r.dev, r.meta, options, r.base_key, spp, mesh)
-        r.acc = torch.stack([*img, *alb, *nrm]).to(r.device)
-        r.iteration = spp
-        log(f"multichip sample-parallel: {spp} iterations over {n_dev} devices")
-        return spp
-    # pixels: shard the accumulators and the wavefront; run every iteration here
-    w, h = r.meta.resolution
-    if (w * h) % n_dev:
-        log(f"multichip pixels: {w}x{h} does not divide {n_dev} devices; "
-            "using the sequential path")
-        return 0
-    step_fn, make_state = sharded_render_step(r.meta, options, mesh)
-    image, albedo, cache = make_state()
-    devs = replicate(r.dev, mesh)
-    for it in range(1, iterations + 1):
-        image, albedo, cache = step_fn(devs, image, albedo, cache, it, r.base_key)
-    r.acc = torch.cat([acc.to(r.device) for acc in image.base], dim=1)
-    r.iteration = iterations
-    log(f"multichip pixel-sharded: {iterations} iterations, "
-        f"{w * h // n_dev} lanes/device over {n_dev} devices")
-    return iterations
+        step_fn, make_state = sharded_render_step(r.meta, options, mesh)
+        image, albedo, cache = make_state()
+        for it in range(1, iterations + 1):  # the scene is copied once, at the first step
+            image, albedo, cache = step_fn(r.dev, image, albedo, cache, it, r.base_key)
+        r.acc = torch.cat([acc.to(r.device) for acc in image.base], dim=1)
+        r.iteration = iterations
+        log(f"multichip pixel-sharded: {iterations} iterations, "
+            f"{w * h // n_dev} lanes/device over {n_dev} devices")
+        return iterations
 
 
 def main(argv=None) -> int:
@@ -215,7 +220,7 @@ def main(argv=None) -> int:
     if args.multichip != "off":
         # r.options, not the local options: the Renderer resolved the auto
         # knobs (winner_table, mesh_sort) from its device.
-        done = _render_multichip(r, r.options, iterations, args.multichip, log)
+        done = render_multichip(r, r.options, iterations, args.multichip, log)
     while done < iterations:
         n = min(args.batch, iterations - done)
         r.step_many(n)

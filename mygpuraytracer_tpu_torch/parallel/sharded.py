@@ -22,7 +22,10 @@ modes, as there:
    gathered to one [9, N] only on request (:meth:`Shards.gather`).
 
 Each device's work is launched from this one process; CUDA launches are
-asynchronous, so devices overlap. One difference from the JAX function: a
+asynchronous, so devices overlap. Spans (``utils/profiling.py``):
+``mygpurt.multichip.replicate`` (the scene's copies),
+``mygpurt.multichip.launch`` (one device's enqueue in sample mode) and
+``mygpurt.multichip.psum`` (the merge). One difference from the JAX function: a
 device whose first iteration is not 1 fills its first-bounce cache at that
 iteration (JAX's device d > 0 would reuse an empty cache, all misses).
 """
@@ -37,6 +40,7 @@ from ..ops.vec3 import Vec3
 from ..render import megakernel
 from ..render.pathtrace import accumulate_sample, render_sample
 from ..scene.device_scene import DeviceScene, SceneMeta
+from ..utils.profiling import named_scope
 from .mesh import Mesh, psum, replicate, split
 
 
@@ -47,10 +51,12 @@ def _megakernel_route(meta: SceneMeta, options: RenderOptions) -> bool:
 
 
 def _replicated(dev, mesh: Mesh) -> list:
-    """``dev`` once per device: a DeviceScene is replicated, a list from
-    :func:`~.mesh.replicate` is taken as it is."""
+    """``dev`` once per device: a DeviceScene is replicated (in the span
+    ``mygpurt.multichip.replicate``), a list from :func:`~.mesh.replicate`
+    is taken as it is."""
     if isinstance(dev, DeviceScene):
-        return replicate(dev, mesh)
+        with named_scope("mygpurt.multichip.replicate"):
+            return replicate(dev, mesh)
     dev = list(dev)
     if len(dev) != mesh.size:
         raise ValueError(f"need one scene per device ({mesh.size}), got {len(dev)}")
@@ -74,18 +80,20 @@ def render_multichip_sample(dev, meta: SceneMeta, options: RenderOptions, base_k
     mega = _megakernel_route(meta, options)
     accs = []
     for d, (device, dev_d) in enumerate(zip(mesh.devices, _replicated(dev, mesh))):
-        acc = torch.zeros((9, n), dtype=torch.float32, device=device)
-        start = d * per_dev + 1
-        if mega:
-            megakernel.accumulate(dev_d, meta, options, acc, start, per_dev, base_key)
-        else:
-            cache = None  # filled at this device's first iteration
-            for it in range(start, start + per_dev):
-                out = render_sample(dev_d, meta, options, it, base_key, cache)
-                accumulate_sample(acc, out, it)
-                cache = out.cache
+        with named_scope("mygpurt.multichip.launch"):
+            acc = torch.zeros((9, n), dtype=torch.float32, device=device)
+            start = d * per_dev + 1
+            if mega:
+                megakernel.accumulate(dev_d, meta, options, acc, start, per_dev, base_key)
+            else:
+                cache = None  # filled at this device's first iteration
+                for it in range(start, start + per_dev):
+                    out = render_sample(dev_d, meta, options, it, base_key, cache)
+                    accumulate_sample(acc, out, it)
+                    cache = out.cache
         accs.append(acc)
-    total = psum(accs, mesh)
+    with named_scope("mygpurt.multichip.psum"):
+        total = psum(accs, mesh)
     return Vec3(*total[0:3]), Vec3(*total[3:6]), Vec3(*total[6:9])
 
 

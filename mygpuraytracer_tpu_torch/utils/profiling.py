@@ -14,7 +14,9 @@ replay of the wavefront's graph of iteration 1, ``Renderer._first``),
 ``mygpurt.denoise`` and its
 ``.build`` and ``.cast`` (the fused denoise), ``mygpurt.filter``, its
 ``.build`` and its phases ``.device``, ``.init`` and ``.execute``
-(``apps/raytrace.py::denoise_beauty``, ``Filter._network``).
+(``apps/raytrace.py::denoise_beauty``, ``Filter._network``), and
+``mygpurt.multichip`` (``apps/raytrace.py::render_multichip``) with its
+``.replicate``, ``.launch`` and ``.psum`` (``parallel/sharded.py``).
 """
 
 from __future__ import annotations

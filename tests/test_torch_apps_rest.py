@@ -166,19 +166,20 @@ def test_raytrace_app_multichip_on_a_cpu_mesh(mode, cpu_mesh, tmp_path, capsys):
 
 
 def test_raytrace_app_multichip_gets_resolved_options(tmp_path, monkeypatch):
-    """The app hands _render_multichip the Renderer's resolved options."""
+    """The app hands render_multichip the Renderer's resolved options."""
     seen = {}
 
-    def fake_multichip(r, options, iterations, mode, log):
-        seen["options"] = options
+    def fake_multichip(r, options, iterations, mode, log, mesh=None):
+        seen["options"], seen["mesh"] = options, mesh
         return iterations
 
-    monkeypatch.setattr(rt, "_render_multichip", fake_multichip)
+    monkeypatch.setattr(rt, "render_multichip", fake_multichip)
     assert rt.main(["cornell", "--resolution", "16", "16", "--iterations", "4", "--no-denoise",
                     "--quiet", "--multichip", "sample", "--device", "cpu",
                     "--out-dir", str(tmp_path)]) == 0
     assert seen["options"].winner_table != "auto"
     assert seen["options"].mesh_sort is not None
+    assert seen["mesh"] is None  # the app's own mesh: every visible device
 
 
 def test_raytrace_app_multichip_single_device_is_sequential(tmp_path, capsys):

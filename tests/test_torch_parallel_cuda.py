@@ -1,10 +1,14 @@
 """The multi-device paths on the card, over the mesh ("cuda:0", "cuda:0"):
 one card named twice, so the split, the per-device launches and the merge
-run as on a mesh of two cards (this measures semantics, not scaling).
+run as on a mesh of two cards (this measures semantics, not scaling); and
+with four cards visible, the sample mode over four distinct cards: equal to
+the sequential render, one K1 launch counted on each card, the four
+launches running at once.
 
 Imports torch and the port only, so it runs on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_parallel_cuda.py
-Without a CUDA device every case skips.
+Without a CUDA device every case skips, and the four-card cases skip
+under four visible cards.
 
 Tolerances: the pixel mode through K1 bit for bit against a sequential
 render of one iteration per launch (a lane reads and writes a pixel's sums
@@ -21,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from mygpuraytracer_tpu_torch import _build
 from mygpuraytracer_tpu_torch.config import RenderOptions
 from mygpuraytracer_tpu_torch.denoise import Device, DeviceBuffer
 from mygpuraytracer_tpu_torch.parallel import (make_mesh, render_multichip_sample,
@@ -39,6 +44,13 @@ def mesh():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return make_mesh(devices=("cuda:0", "cuda:0"))
+
+
+@pytest.fixture(scope="module")
+def cards4():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    return make_mesh(4)
 
 
 def _ship(name):
@@ -111,3 +123,43 @@ def test_filter_mesh_is_bitwise_the_single_device(mesh, max_mem):
         outs.append(out.array)
     assert torch.isfinite(outs[1]).all()
     assert torch.equal(outs[0], outs[1])
+
+
+def _k1_launches_per_card() -> dict:
+    return {d.index: int(c) for (k, d), c in _build._on_device.items() if k == "k1"}
+
+
+@pytest.mark.requires_cuda
+def test_sample_mode_over_four_cards_matches_the_sequential_render(cards4):
+    r = Renderer(cornell_box(resolution=(RES, RES)), RenderOptions(megakernel=True), seed=5,
+                 device="cuda")
+    _build.zero_launches_on_device()
+    img, alb, nrm = render_multichip_sample(r.dev, r.meta, r.options, r.base_key, 64, cards4)
+    assert img[0].device == cards4.first
+    assert _k1_launches_per_card() == {0: 1, 1: 1, 2: 1, 3: 1}  # one K1 launch a card
+    r.render(64)
+    np.testing.assert_allclose(torch.stack(img).cpu().numpy(), r.acc[0:3].cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(torch.stack([*alb, *nrm]), r.acc[3:9])
+
+
+@pytest.mark.requires_cuda
+def test_four_cards_render_at_once(cards4):
+    """The four K1 launches of one call overlap on the profiler's clock:
+    nothing between them waits for a card (800x800, 64 iterations a card,
+    ~14 ms each)."""
+    r = Renderer(cornell_box(resolution=(800, 800)), RenderOptions(megakernel=True), seed=5,
+                 device="cuda")
+    render_multichip_sample(r.dev, r.meta, r.options, r.base_key, 16, cards4)  # every card warm
+    for d in cards4.devices:
+        torch.cuda.synchronize(d)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        render_multichip_sample(r.dev, r.meta, r.options, r.base_key, 256, cards4)
+        for d in cards4.devices:
+            torch.cuda.synchronize(d)
+    k1 = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and "k1_kernel" in e.name
+          and not getattr(e, "is_user_annotation", False)]
+    assert sorted(e.device_index for e in k1) == [0, 1, 2, 3]
+    assert max(e.time_range.start for e in k1) < min(e.time_range.end for e in k1)

@@ -1,6 +1,6 @@
 """The port's spans (``utils/profiling.py::named_scope``) on the CPU: the
-preview frame's and the app's denoise open exactly their ``mygpurt.*``
-spans, nested as the spans' table states; with no profiler active no span
+preview frame's, the app's denoise and its multichip render open exactly
+their ``mygpurt.*`` spans, nested as the spans' table states; with no profiler active no span
 enters ``record_function``; a ``PhaseTimer`` phase is a span of its name.
 The card's side (``Renderer.render`` without a device sync, NVTX) is
 ``tests/test_torch_spans_cuda.py``."""
@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from mygpuraytracer_tpu_torch.apps.raytrace import denoise_beauty
+from mygpuraytracer_tpu_torch.apps.raytrace import denoise_beauty, render_multichip
 from mygpuraytracer_tpu_torch.config import RenderOptions
+from mygpuraytracer_tpu_torch.parallel import make_mesh
 from mygpuraytracer_tpu_torch.render import Renderer, denoise_fused
 from mygpuraytracer_tpu_torch.scene.builtin import cornell_box
 from mygpuraytracer_tpu_torch.utils.profiling import PhaseTimer, named_scope
@@ -110,6 +111,24 @@ def test_denoise_beauty_opens_the_filter_spans():
         ("mygpurt.filter.init", ("mygpurt.filter",)),
         ("mygpurt.filter.build", ("mygpurt.filter.init", "mygpurt.filter")),
         ("mygpurt.filter.execute", ("mygpurt.filter",)),
+    ])
+
+
+@pytest.mark.parametrize("megakernel", [True, False], ids=["k1", "wavefront"])
+def test_render_multichip_opens_the_mesh_spans(megakernel):
+    """The app's sample mode over four devices: ``mygpurt.multichip`` around
+    the scene's copies, one launch span a device and the sum."""
+    scene = cornell_box()
+    scene.set_resolution(8, 8)
+    r = Renderer(scene, RenderOptions(megakernel=megakernel), seed=3, device="cpu")
+    mesh = make_mesh(devices=("cpu",) * 4)
+    spans = _spans(lambda: render_multichip(r, r.options, 4, "sample", lambda *a: None, mesh))
+    inner = ("mygpurt.multichip",)
+    assert sorted(spans) == sorted([
+        ("mygpurt.multichip", ()),
+        ("mygpurt.multichip.replicate", inner),
+        *[("mygpurt.multichip.launch", inner)] * 4,
+        ("mygpurt.multichip.psum", inner),
     ])
 
 

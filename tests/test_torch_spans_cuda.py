@@ -1,4 +1,5 @@
-"""The Renderer's timer and the port's spans on the card.
+"""The Renderer's timer and the port's spans on the card, the multichip
+render's among them.
 
 Imports torch and the port only, so it runs on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_spans_cuda.py
@@ -13,10 +14,14 @@ then read above 0. Under
 ``named_scope`` opens its range, which NVTX carries to Nsight.
 """
 
+import collections
+
 import pytest
 import torch
 
+from mygpuraytracer_tpu_torch.apps.raytrace import render_multichip
 from mygpuraytracer_tpu_torch.config import RenderOptions
+from mygpuraytracer_tpu_torch.parallel import make_mesh
 from mygpuraytracer_tpu_torch.render import Renderer
 from mygpuraytracer_tpu_torch.scene.builtin import cornell_box
 from mygpuraytracer_tpu_torch.utils.profiling import named_scope
@@ -97,3 +102,32 @@ def test_named_scope_is_active_under_emit_nvtx(monkeypatch):
         with named_scope("mygpurt.denoise"):
             pass
     assert entered == ["mygpurt.denoise"]
+
+
+@pytest.mark.requires_cuda
+def test_multichip_spans_open_and_their_device_mirrors_are_annotations():
+    """``render_multichip`` in sample mode (four cards where four are
+    visible, else one named four times) opens ``mygpurt.multichip``, one
+    ``.replicate``, a ``.launch`` a card and one ``.psum``; each of their
+    ranges on the device carries ``is_user_annotation``, so the benchmark's
+    slices drop them as they drop every span's."""
+    _need_cuda()
+    mesh = make_mesh(4) if torch.cuda.device_count() >= 4 else make_mesh(
+        devices=("cuda:0",) * 4)
+    scene = cornell_box()
+    scene.set_resolution(RES, RES)
+    r = Renderer(scene, RenderOptions(megakernel=True), seed=1, device="cuda")
+    render_multichip(r, r.options, 8, "sample", lambda *a: None, mesh)  # the cards warm
+    torch.cuda.synchronize()
+    r.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        assert render_multichip(r, r.options, 16, "sample", lambda *a: None, mesh) == 16
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [e for e in prof.events() if e.name.startswith("mygpurt.multichip")]
+    host = collections.Counter(e.name for e in spans if e.device_type != cuda)
+    assert host == {"mygpurt.multichip": 1, "mygpurt.multichip.replicate": 1,
+                    "mygpurt.multichip.launch": 4, "mygpurt.multichip.psum": 1}
+    mirrors = [e for e in spans if e.device_type == cuda]
+    assert mirrors and all(getattr(e, "is_user_annotation", False) for e in mirrors)
