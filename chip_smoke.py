@@ -52,7 +52,12 @@ each printing one line with its elapsed seconds:
                   then the kernel timed with CUDA events at each block size
                   of the sweep, with the necessary, plain and kernel visits
                   per live ray and the counting build's tree nodes,
-                  traversal lane use and leaf rounds (mesh_time), and two
+                  traversal lane use and leaf rounds (mesh_time); the
+                  wavefront's primitive kernel (csrc/prims_hit.cu) on each
+                  of an iteration's 8 bounces, every field bitwise against
+                  intersect_primitives_soa, its launches counted on the card
+                  (eager and replayed), device ms against its byte bound and
+                  the plain version's ms (prims_time); and two
                   iterations under torch.profiler (mesh_profile): device busy
                   share and the kernels that take the device time
 7. options     -- the wavefront's render options and the Renderer surface:
@@ -365,6 +370,7 @@ from mygpuraytracer_tpu_torch.config import RenderOptions
 from mygpuraytracer_tpu_torch.denoise import Device, DeviceBuffer
 from mygpuraytracer_tpu_torch.denoise.unet import conv_specs, no_tf32
 from mygpuraytracer_tpu_torch.ops import mesh_hit as mh
+from mygpuraytracer_tpu_torch.ops import prims_hit as ph
 from mygpuraytracer_tpu_torch.ops import prng, rng, trace
 from mygpuraytracer_tpu_torch.ops.trace import intersect_soa
 from mygpuraytracer_tpu_torch.ops.vec3 import Vec3
@@ -1093,6 +1099,82 @@ def time_mesh_query(q: MeshQuery, **labels) -> dict:
           holders_per_leaf_round=f"{float(visits.sum()) / max(leaf_rounds, 1):.3f}",
           fp32_ops=f"{ops:.3e}", bytes=int(nbytes), library_ms="none")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, sweep=sweep)
+
+
+PRIMS_FIELDS = ("t", "spec_ex", "refl", "refr", "ior", "emit", "u", "v", "mat_id", "kd", "ks",
+                "ke", "bump", "is_obj")
+
+
+def prims_bytes(o: Vec3, d: Vec3) -> int:
+    """The bytes the primitive kernel needs over [N] rays (csrc/prims_hit.cu):
+    each ray component that varies by lane read once (an expanded camera
+    position is one value), OUT_F floats and OUT_I ints written a lane, and
+    the zero word."""
+    n = o.x.shape[0]
+    varying = sum(c.stride(0) != 0 for c in (*o, *d))
+    return 4 * (n * (varying + ph.OUT_F + ph.OUT_I) + 1)
+
+
+def prims_phase(device) -> dict:
+    """The primitive kernel (csrc/prims_hit.cu) on cornellShipTex at the
+    main path's shape: its launches counted on the card over an eager
+    iteration and over four graph replays of the main path (DEPTH each; the
+    kernels line reports the replays' count), and on each bounce's rays of
+    one iteration, every field of its hit bit for bit against
+    ``intersect_primitives_soa``'s, its device ms per launch (queued, alone)
+    against its byte bound and the plain version's ms by CUDA events (eager:
+    ~1,660 launches). One prims_time line a bounce; returns the kernels
+    line's numbers (means over the bounces)."""
+    r = Renderer(mesh_scene("cornellShipTex"), app_options(), seed=SEED, device=device)
+    queries = []
+    orig = pathtrace.intersect_soa
+    # an expanded camera position kept as it is, so the kernel reads it as on the main path
+    keep = lambda c: c if c.stride(0) == 0 else c.clone()
+
+    def record(meta, dev, o, d, *args, **kwargs):
+        queries.append((Vec3(*map(keep, o)), Vec3(*map(keep, d))))
+        return orig(meta, dev, o, d, *args, **kwargs)
+
+    _build.zero_launches_on_device()
+    with patched(pathtrace, "intersect_soa", record), graphs.disabled():
+        r.step()
+    eager = _build.launches_on_device("prims_hit")
+    r.step_many(2)  # the later iteration's graph: captured, replayed
+    _build.zero_launches_on_device()
+    launches_before = ph.LAUNCHES
+    r.step_many(4)
+    replayed = _build.launches_on_device("prims_hit")
+    if not (eager == DEPTH and replayed == 4 * DEPTH and ph.LAUNCHES == launches_before
+            and len(queries) == DEPTH):
+        raise AssertionError(f"prims_hit launches: eager {eager}, four replays {replayed}, "
+                             f"host {ph.LAUNCHES - launches_before}, queries {len(queries)}")
+    meta, table = r.meta, r.dev.prim_table
+    times = []
+    for bounce, (o, d) in enumerate(queries):
+        run = lambda: ph.prims_hit(table, o, d)
+        plain = lambda: trace.intersect_primitives_soa(meta, o, d)
+        k, p = trace._Running.from_rows(*run()), plain()
+        bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+        for name in PRIMS_FIELDS:
+            if not torch.equal(bits(getattr(k, name)), bits(getattr(p, name))):
+                raise AssertionError(f"prims_hit differs from the plain version in {name}")
+        for name in ("normal", "color", "spec"):
+            if not all(torch.equal(bits(a), bits(b)) for a, b in zip(getattr(k, name),
+                                                                     getattr(p, name))):
+                raise AssertionError(f"prims_hit differs from the plain version in {name}")
+        n, nbytes = o.x.shape[0], prims_bytes(o, d)
+        ms = queued_ms(run)
+        plain_ms = float(np.median([cuda_ms(plain) for _ in range(3)]))
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        hits = int(torch.isfinite(p.t).sum())
+        phase("prims_time", scene="cornellShipTex", bounce=bounce, lanes=n, hit_lanes=hits,
+              prims=int(table.shape[0]), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+              bound_ms=f"{bound_ms:.4f}", bound_by="bytes", of_bound=f"{bound_ms / ms:.4f}",
+              bytes=nbytes, equal=True, library_ms="none")
+        times.append((ms, plain_ms, bound_ms))
+    ms, plain_ms, bound_ms = (float(np.mean(col)) for col in zip(*times))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                launches=replayed)
 
 
 def compare_images(a: np.ndarray, b: np.ndarray) -> dict:
@@ -2408,8 +2490,9 @@ def main() -> int:
         # later bounce, live lanes or not), and every query launches the
         # kernel: the launches counted on the card, iteration 1's and the
         # replays', while the host's launches and the query's Python calls
-        # (queries) are iteration 1's and the capture's.
-        if not (m_launches == MESH_ITERS * DEPTH and queries[0] == mh.LAUNCHES == 2 * DEPTH):
+        # (queries) are iteration 1's and the two captures' (iteration 1's
+        # graph, then the later iteration's).
+        if not (m_launches == MESH_ITERS * DEPTH and queries[0] == mh.LAUNCHES == 3 * DEPTH):
             raise AssertionError(f"{name}: {m_launches} kernel launches on the card over "
                                  f"{MESH_ITERS} iterations, {mh.LAUNCHES} from the host, "
                                  f"{queries[0]} Python calls of the query")
@@ -2439,7 +2522,7 @@ def main() -> int:
             _build.zero_launches_on_device()
             img = r.render(iterations=MESH_TIER_ITERS)
             mesh_launches[tier] = _build.launches_on_device("mesh_hit")
-        if not (mesh_launches[tier] == MESH_TIER_ITERS * DEPTH and queries[0] == 2 * DEPTH
+        if not (mesh_launches[tier] == MESH_TIER_ITERS * DEPTH and queries[0] == 3 * DEPTH
                 and np.isfinite(img).all()):
             raise AssertionError(f"tier {tier}: {mesh_launches[tier]} launches over "
                                  f"{MESH_TIER_ITERS} iterations, {queries[0]} Python calls")
@@ -2480,6 +2563,9 @@ def main() -> int:
     for tier, calls in tier_calls.items():
         mesh_times["cornellShipTex", tier, "bounce1"] = time_mesh_query(
             calls[1], scene="cornellShipTex", tier=tier, batch="bounce1")
+
+    # ---- prims: the wavefront's primitive kernel against its plain version ----------
+    prims = prims_phase(device)
 
     # ---- mesh_profile: where the mesh main path's device time goes ------------------
     r = Renderer(mesh_scene("cornellShipTex"), app_options(), seed=SEED, device=device)
@@ -2873,6 +2959,20 @@ def main() -> int:
             "library_ms": None,
             "design": "redesigned: per-ray cluster-tree walk, warp-tested leaves (csrc/mesh.cuh)",
         })
+    kernels.append({
+        "name": "prims_hit",
+        "route": "cuda",
+        "source": "mygpuraytracer_tpu_torch/csrc/prims_hit.cu",
+        "replaces": "none: plain jnp in the JAX package (ops/trace.py intersect_primitives_soa)",
+        "launches": prims["launches"],
+        "max_abs_err": 0.0,
+        **{key_: prims[key_] for key_ in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "design": "one thread a lane over the scene's cube and sphere table, the plain "
+                  "version's roundings (_rn intrinsics, IEEE division and sqrt, rsqrtf); "
+                  "times per launch at 640,000 lanes, means over one iteration's 8 bounces; "
+                  "launches over 4 graph-replayed iterations of the main path",
+    })
     kernels.append({
         "name": "k5_bounce",
         "route": "cuda",

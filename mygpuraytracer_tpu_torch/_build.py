@@ -44,6 +44,9 @@ SIGNATURES = {
     "k1_blocks_per_sm": (_I, [_I, _I, _I, _I]),
     # csrc/mesh_hit.cu
     "mesh_hit": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # csrc/prims_hit.cu
+    "prims_hit": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I,
+                       _P]),
     # csrc/prng.cu
     "k6_uniforms": (_I, [_I, _P, _I, _I, _I, _U, _U, _P, _P]),
     # csrc/bounce.cu

@@ -8,15 +8,18 @@ Counterpart of ``mygpuraytracer_tpu/ops/trace.py``:
   wins ties (the strict ``t_min > t`` scan of pathtrace.cu:360);
 - ``primitives_hit`` tests the literal face list ``SceneMeta.mega_faces``:
   the plain form of what the K1 CUDA kernel computes;
-- ``intersect_soa`` merges a mesh query into the primitives' hit. Meshes of
-  more than 256 faces go through the cluster tiers when ``mesh_pallas`` is
-  on (the default on CUDA tensors): ``mesh_rows_hit`` (K2),
-  ``mesh_list_hit`` (K3) and ``mesh_pallas_hit`` (K4) all run one nearest-
-  face query, ``ops/mesh_hit.py``, which launches the CUDA kernel on CUDA
-  tensors and runs its plain version on CPU tensors; they differ only in
-  how they turn the winner into texcoords and the TBN frame. Otherwise the
-  faces stream in chunks through Moller-Trumbore (the CPU default and the
-  oracle of the goldens), where the lowest face index wins a tie;
+- ``intersect_soa`` takes the primitives' hit from ``nearest_primitives``
+  (on CUDA tensors one launch of ``ops/prims_hit.py``'s kernel, on CPU
+  tensors ``intersect_primitives_soa``, which it equals bit for bit) and
+  merges a mesh query into it. Meshes of more than 256 faces go through the
+  cluster tiers when ``mesh_pallas`` is on (the default on CUDA tensors):
+  ``mesh_rows_hit`` (K2), ``mesh_list_hit`` (K3) and ``mesh_pallas_hit``
+  (K4) all run one nearest-face query, ``ops/mesh_hit.py``, which launches
+  the CUDA kernel on CUDA tensors and runs its plain version on CPU tensors;
+  they differ only in how they turn the winner into texcoords and the TBN
+  frame. Otherwise the faces stream in chunks through Moller-Trumbore (the
+  CPU default and the oracle of the goldens), where the lowest face index
+  wins a tie;
 - ``bvh_scene_hit``, ``mesh_nearfar_hit`` and ``bvh_scene_hit_nearfar`` are
   the plain versions of the whole-scene query that K5 (``csrc/bounce.cu``)
   computes for untextured meshes: the primitives, then the nearest face
@@ -34,6 +37,7 @@ import torch
 from ..scene.structs import GeomType
 from . import vec3 as v3
 from .mesh_hit import mesh_hit, mesh_hit_reference
+from .prims_hit import prims_hit
 from .vec3 import Vec3
 
 HIT_EPS = 1e-4
@@ -215,6 +219,21 @@ class _Running:
         self.u = self.v = z
         self.mat_id = self.kd = self.ks = self.ke = self.bump = zi
 
+    @classmethod
+    def from_rows(cls, rows_f: torch.Tensor, rows_i: torch.Tensor, zero: torch.Tensor):
+        """The state from ``ops/prims_hit.py``'s rows, as views: the zero
+        word [1] expanded into the texcoords and, as its first byte,
+        ``is_obj``."""
+        run = cls.__new__(cls)
+        (run.t, nx, ny, nz, cr, cg, cb, sr, sg, sb, run.spec_ex, run.refl, run.refr, run.ior,
+         run.emit) = rows_f
+        run.normal, run.color, run.spec = Vec3(nx, ny, nz), Vec3(cr, cg, cb), Vec3(sr, sg, sb)
+        run.mat_id, run.kd, run.ks, run.ke, run.bump = rows_i
+        n = rows_f.shape[1]
+        run.u = run.v = zero.expand(n)
+        run.is_obj = zero.view(torch.uint8)[:1].view(torch.bool).expand(n)
+        return run
+
     def set_material(self, better, g):
         w = lambda val, old: torch.where(better, val, old)
         self.color = Vec3(*(w(c, a) for c, a in zip(g.color, self.color)))
@@ -259,6 +278,16 @@ def intersect_primitives_soa(meta, o: Vec3, d: Vec3) -> _Running:
             continue  # TRIANGLE has no dispatch case; OBJ handled separately
         run.take(t < run.t, g, t, nrm, is_obj=False)
     return run
+
+
+def nearest_primitives(meta, dev, o: Vec3, d: Vec3) -> _Running:
+    """:func:`intersect_primitives_soa`'s running state: for CUDA tensors
+    one launch of the primitive kernel over ``dev.prim_table``
+    (``ops/prims_hit.py``), which equals it bit for bit; for CPU tensors
+    the plain function itself."""
+    if o.x.device.type == "cpu":
+        return intersect_primitives_soa(meta, o, d)
+    return _Running.from_rows(*prims_hit(dev.prim_table, o, d))
 
 
 def primitives_hit(meta, o: Vec3, d: Vec3) -> HitSoA:
@@ -584,7 +613,7 @@ def intersect_soa(
     - Bump-mapped meshes perturb the winner's normal through its TBN frame
       (intersections.h:245-279).
     """
-    run = intersect_primitives_soa(meta, o, d)
+    run = nearest_primitives(meta, dev, o, d)
     if not meta.has_obj:
         return run.hit_soa()
     if active is not None:

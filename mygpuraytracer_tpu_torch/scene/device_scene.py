@@ -20,6 +20,9 @@ Counterpart of ``mygpuraytracer_tpu/scene/device_scene.py``:
                ``tex_atlas16_w`` four words per texel of a geom's
                kd/ks/ke/bump maps) with static slot tables in ``SceneMeta``;
 - materials -> tensors [M, ...];
+- cubes and spheres -> ``prim_table`` [P, PRIM_COLS], one row per cube or
+  sphere in geom order (:func:`primitive_table`): what the wavefront's
+  nearest-primitive kernel (csrc/prims_hit.cu) reads;
 - meshes of at most ``MEGA_FACE_CAP`` faces also as ``SceneMeta.mega_faces``
   (geom, v0, e1, e2, unit normal), which the K1 kernel reads.
 
@@ -55,6 +58,14 @@ from .structs import Camera, FaceArray, GeomType, Scene
 CLUSTER_SIZE = 128
 # Meshes with at most this many faces are read by the K1 kernel as a list.
 MEGA_FACE_CAP = 256
+
+# The primitive table's row (csrc/prims_hit.cu reads the same offsets):
+# type (int32 bits: GeomType), inverse_transform and transform rows 0-2 of 4
+# columns, inv_transpose rows 0-2 of 3, color, spec color, spec exponent,
+# reflective, refractive, ior, emittance, then material id and the kd, ks,
+# ke and bump texture slots (int32 bits).
+PRIM_TYPE, PRIM_INV, PRIM_XFORM, PRIM_INVT, PRIM_MAT, PRIM_INTS = 0, 1, 13, 25, 34, 45
+PRIM_COLS = 50
 
 
 class CameraParams(NamedTuple):
@@ -111,6 +122,7 @@ class DeviceScene(NamedTuple):
     # the right child's box, then the two child links as int32 bits.
     # f32[0, 16] unless the scene has such a mesh, as face_gather.
     cluster_tree: torch.Tensor
+    prim_table: torch.Tensor  # f32[P, PRIM_COLS]: primitive_table(SceneMeta.geoms)
     mat_color: torch.Tensor  # f32[M,3]
     mat_spec_color: torch.Tensor  # f32[M,3]
     mat_spec_ex: torch.Tensor  # f32[M]
@@ -411,6 +423,26 @@ def _uv_tbn(e1, e2, uv0, uv1, uv2, fp: int) -> tuple[np.ndarray, np.ndarray]:
     return tb, ex
 
 
+def primitive_table(geoms) -> np.ndarray:
+    """The cubes and spheres of ``geoms`` (``GeomStatic`` records, in order;
+    other types are left out) as float32 rows of ``PRIM_COLS``: the
+    transforms and material constants that ``ops/trace.py::
+    intersect_primitives_soa`` reads as Python floats, rounded to float32
+    as its arithmetic rounds them, and the int fields as int32 bits."""
+    prims = [g for g in geoms if g.type in (GeomType.CUBE, GeomType.SPHERE)]
+    table = np.zeros((len(prims), PRIM_COLS), np.float32)
+    ints = table.view(np.int32)
+    for row, g in enumerate(prims):
+        ints[row, PRIM_TYPE] = g.type
+        table[row, PRIM_INV:PRIM_XFORM] = np.asarray(g.inverse_transform, np.float32)[:3].ravel()
+        table[row, PRIM_XFORM:PRIM_INVT] = np.asarray(g.transform, np.float32)[:3].ravel()
+        table[row, PRIM_INVT:PRIM_MAT] = np.asarray(g.inv_transpose, np.float32)[:3, :3].ravel()
+        table[row, PRIM_MAT:PRIM_INTS] = (*g.color, *g.spec_color, g.spec_exponent,
+                                          g.has_reflective, g.has_refractive, g.ior, g.emittance)
+        ints[row, PRIM_INTS:PRIM_COLS] = (g.material_id, g.kd, g.ks, g.ke, g.bump)
+    return table
+
+
 def build_device_scene(
     scene: Scene, face_chunk: int = 64, device="cuda"
 ) -> tuple[DeviceScene, SceneMeta]:
@@ -528,26 +560,6 @@ def build_device_scene(
 
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     words = lambda a: t(np.ascontiguousarray(a, np.uint32).view(np.int32))
-    dev = DeviceScene(
-        geom_type=t(geom_type), geom_material=t(geom_material),
-        transform=t(transform), inverse_transform=t(inverse_transform),
-        inv_transpose=t(inv_transpose), aabb_min=t(aabb_min), aabb_max=t(aabb_max),
-        geom_kd=t(geom_kd), geom_ks=t(geom_ks), geom_ke=t(geom_ke),
-        geom_bump=t(geom_bump),
-        face_v0=t(face_v0), face_e1=t(face_e1), face_e2=t(face_e2),
-        face_uv0=t(face_uv0), face_uv1=t(face_uv1), face_uv2=t(face_uv2),
-        face_geom=t(face_geom), face_tb=t(face_tb),
-        face_plane=t(face_plane), face_plane_ex=t(face_plane_ex), face_ex_t=t(ex12),
-        face_ex_h=words(_pack_f16_pairs(ex12)), face_ex_o=words(face_ex_o),
-        cluster_bounds=t(cluster_bounds), face_gather=t(face_gather),
-        cluster_tree=t(cluster_tree),
-        mat_color=t(mat_color), mat_spec_color=t(mat_spec_color),
-        mat_spec_ex=t(mat_scalars[0]), mat_refl=t(mat_scalars[1]),
-        mat_refr=t(mat_scalars[2]), mat_ior=t(mat_scalars[3]),
-        mat_emittance=t(mat_scalars[4]),
-        tex_atlas_w=words(tex_atlas_w), tex_atlas16_w=words(tex_atlas16_w),
-        camera=camera_params(scene.state.camera, device),
-    )
 
     def _t4(m) -> tuple:
         return tuple(tuple(float(v) for v in row) for row in np.asarray(m))
@@ -578,6 +590,27 @@ def build_device_scene(
             aabb_min=_t3(aabb_min[gi]),
             aabb_max=_t3(aabb_max[gi]),
         ))
+
+    dev = DeviceScene(
+        geom_type=t(geom_type), geom_material=t(geom_material),
+        transform=t(transform), inverse_transform=t(inverse_transform),
+        inv_transpose=t(inv_transpose), aabb_min=t(aabb_min), aabb_max=t(aabb_max),
+        geom_kd=t(geom_kd), geom_ks=t(geom_ks), geom_ke=t(geom_ke),
+        geom_bump=t(geom_bump),
+        face_v0=t(face_v0), face_e1=t(face_e1), face_e2=t(face_e2),
+        face_uv0=t(face_uv0), face_uv1=t(face_uv1), face_uv2=t(face_uv2),
+        face_geom=t(face_geom), face_tb=t(face_tb),
+        face_plane=t(face_plane), face_plane_ex=t(face_plane_ex), face_ex_t=t(ex12),
+        face_ex_h=words(_pack_f16_pairs(ex12)), face_ex_o=words(face_ex_o),
+        cluster_bounds=t(cluster_bounds), face_gather=t(face_gather),
+        cluster_tree=t(cluster_tree), prim_table=t(primitive_table(geom_statics)),
+        mat_color=t(mat_color), mat_spec_color=t(mat_spec_color),
+        mat_spec_ex=t(mat_scalars[0]), mat_refl=t(mat_scalars[1]),
+        mat_refr=t(mat_scalars[2]), mat_ior=t(mat_scalars[3]),
+        mat_emittance=t(mat_scalars[4]),
+        tex_atlas_w=words(tex_atlas_w), tex_atlas16_w=words(tex_atlas16_w),
+        camera=camera_params(scene.state.camera, device),
+    )
 
     mega_faces = ()
     if 0 < num_faces <= MEGA_FACE_CAP:
