@@ -6,7 +6,8 @@ Drives the port's main paths (mygpuraytracer_tpu_torch) on the card
 at 800x800, depth 8: the builtin Cornell box through the K1 CUDA kernel;
 the 23,328-face spaceship in the Cornell box, textured and bump-mapped
 (scenes/cornellShipTex.txt) and plain (scenes/cornellShip.txt), through the
-wavefront and the mesh tiers' CUDA kernel (K2/K3/K4); and cornellShip
+wavefront and the one mesh query's CUDA kernel (the JAX package's K2/K3/K4);
+and cornellShip
 through the bounce megakernel K5 with the K6 uniforms for its raygen; all
 denoised with the U-Net, the Cornell render also through the OIDN-style
 Filter API and the two apps that call it; the denoiser's trainer, on
@@ -38,16 +39,16 @@ each printing one line with its elapsed seconds:
                   and bounce-1 queries of cornellShip and cornellShipTex:
                   bitwise on every output (lanes that differ must be proven
                   box-rounding lanes, ops/mesh_hit.py::box_rounding_lanes,
-                  and are counted), the winner's extras under each tier name
-                  and winner table, the counting build's outputs equal, and
+                  and are counted), the winner's extras under the f32 and
+                  oct winner tables, the counting build's outputs equal, and
                   per ray necessary visits <= the kernel's <= the clusters
                   entered below t_cap
 6. mesh_render -- the mesh main path: render_denoised of cornellShipTex and
                   cornellShip with the kernel's launches counted on the
                   card (depth launches per iteration: each launch adds to
                   a count kept on the device, which a graph's replays move
-                  too), the lists and conds tiers likewise, kernel
-                  against plain-tier images (the plain tier eager),
+                  too), kernel against plain-query images (the plain
+                  query eager),
                   the oct winner table's image against f32's (recorded);
                   then the kernel timed with CUDA events at each block size
                   of the sweep, with the necessary, plain and kernel visits
@@ -521,8 +522,7 @@ BOUNCE_ITERS = 16  # the K5 main path: one render_denoised of 16 iterations
 BOUNCE_IMAGE_ITERS = 4  # K5 against the wavefront, image of 4 iterations
 MESH_SCENES = ("cornellShipTex", "cornellShip")
 MESH_ITERS = 16  # the main path: one render_denoised of 16 iterations
-MESH_TIER_ITERS = 2  # the lists and conds tiers' own main-path runs
-MESH_IMAGE_ITERS = 4  # kernel against plain tier, image of 4 iterations
+MESH_IMAGE_ITERS = 4  # kernel against plain query, image of 4 iterations
 PROFILE_ITERS = 2  # iterations under torch.profiler
 # Phase options: the wavefront's render options and the Renderer surface.
 # BASELINE config #3 (apps/benchmark.py cornell_dof_cache_sort): DoF, the
@@ -987,7 +987,7 @@ def recording_mesh_queries(keep: int = 2):
 
 
 def plain_mesh_hit(fp, bounds, rays, with_visits=False, **walk):
-    """The tiers' query through the plain version, in the kernel's place."""
+    """The mesh query through the plain version, in the kernel's place."""
     return mh.mesh_hit_reference(fp, bounds, rays, with_visits)
 
 
@@ -1004,8 +1004,8 @@ def mesh_scene(name: str):
 
 def app_options(**changes) -> RenderOptions:
     """The options the app builds on CUDA with its default flags."""
-    return dataclasses.replace(RenderOptions(megakernel=True, mesh_tier="rows", mesh_sort=None,
-                                             winner_table="auto"), **changes)
+    return dataclasses.replace(RenderOptions(megakernel=True, mesh_sort=None, winner_table="auto"),
+                               **changes)
 
 
 @dataclasses.dataclass
@@ -1541,8 +1541,7 @@ def options_phase(device) -> None:
     for sort in (False, True):
         r = Renderer(mesh_scene("cornellShipTex"), app_options(sort_by_material=sort),
                      seed=SEED, device=device)
-        if r.use_megakernel or (r.options.mesh_tier, r.options.mesh_sort,
-                                r.options.winner_table) != ("rows", "need", "oct"):
+        if r.use_megakernel or (r.options.mesh_sort, r.options.winner_table) != ("need", "oct"):
             raise AssertionError(f"cornellShipTex_sort: unexpected route {r.options}")
         with patched(trace, "mesh_intersect_soa", refuse):
             r.step_many(2)  # the warm-up and the capture
@@ -2436,7 +2435,7 @@ def main() -> int:
             render_sample(dev, meta, r.options, 1, r.base_key)
         calls = calls[:2]  # bounce 0: the camera rays; bounce 1: after one shade
         with_tb = any(g.bump > 0 for g in meta.geoms)
-        tables = ({"f32": dev.face_ex_t, "f16": dev.face_ex_h, "oct": dev.face_ex_o}
+        tables = ({"f32": dev.face_ex_t, "oct": dev.face_ex_o}
                   if meta.has_textures else {"f32": dev.face_ex_t})
         for label, q in zip(("bounce0", "bounce1"), calls):
             out_k, _ = q.kernel()
@@ -2446,16 +2445,13 @@ def main() -> int:
             same = (out_k == out_p) | (out_k.isnan() & out_p.isnan())
             mesh_max_abs = max(mesh_max_abs, float(torch.where(
                 same, 0.0, (out_k - out_p).abs()).nan_to_num(nan=float("inf")).max()))
-            # The winner's texcoord and TBN, from each table the tiers read,
+            # The winner's texcoord and TBN, from each table the query reads,
             # on the lanes whose outputs are bitwise (all but proven
             # box-rounding ones, whose winner differs).
             agree = (out_k.view(torch.int32) == out_p.view(torch.int32)).all(dim=0)
             extras = [(trace._winner_extras(out_k, tab, meta.has_textures, with_tb),
                        trace._winner_extras(out_p, tab, meta.has_textures, with_tb))
                       for tab in tables.values()]
-            extras.append((
-                trace._plane_ex_extras(out_k, dev.face_plane_ex, meta.has_textures, with_tb),
-                trace._plane_ex_extras(out_p, dev.face_plane_ex, meta.has_textures, with_tb)))
             extras_equal = all(torch.equal(a[agree], b[agree])
                                for ek, ep in extras for a, b in zip(ek, ep))
             counting_equal = bool(torch.equal(out_c.view(torch.int32), out_k.view(torch.int32)))
@@ -2475,8 +2471,7 @@ def main() -> int:
     mesh_launches = {}
     for name in MESH_SCENES:
         r = Renderer(mesh_scene(name), app_options(), seed=SEED, device=device)
-        if r.use_megakernel or (r.options.mesh_tier, r.options.mesh_sort,
-                                r.options.winner_table) != ("rows", "need", "oct"):
+        if r.use_megakernel or (r.options.mesh_sort, r.options.winner_table) != ("need", "oct"):
             raise AssertionError(f"{name}: unexpected route or options {r.options}")
         with counting(trace, "mesh_rows_hit") as queries, \
                 patched(trace, "mesh_intersect_soa", refuse):
@@ -2506,31 +2501,15 @@ def main() -> int:
         r.render(iterations=MESH_ITERS, batch=16)
         torch.cuda.synchronize()
         render_s = time.perf_counter() - t
-        if name == "cornellShipTex":
-            mesh_launches["rows"] = m_launches
-        phase("mesh_render", scene=name, tier="rows", main_path_s=f"{wall_s:.2f}",
+        mesh_launches[name] = m_launches
+        phase("mesh_render", scene=name, main_path_s=f"{wall_s:.2f}",
               mesh_launches=m_launches, mesh_queries=queries[0],
               render_s=f"{render_s:.3f}", ms_per_iter=f"{1e3 * render_s / MESH_ITERS:.1f}",
               msamples_per_s=f"{RES * RES * MESH_ITERS / render_s / 1e6:.2f}",
               beauty_mean=f"{beauty.mean():.4f}", denoised_mean=f"{denoised.mean():.4f}")
-    tier_calls = {}
-    for tier, fn in (("lists", "mesh_list_hit"), ("conds", "mesh_pallas_hit")):
-        r = Renderer(mesh_scene("cornellShipTex"), app_options(mesh_tier=tier), seed=SEED,
-                     device=device)
-        with counting(trace, fn) as queries, patched(trace, "mesh_intersect_soa", refuse), \
-                recording_mesh_queries() as tier_calls[tier]:
-            _build.zero_launches_on_device()
-            img = r.render(iterations=MESH_TIER_ITERS)
-            mesh_launches[tier] = _build.launches_on_device("mesh_hit")
-        if not (mesh_launches[tier] == MESH_TIER_ITERS * DEPTH and queries[0] == 3 * DEPTH
-                and np.isfinite(img).all()):
-            raise AssertionError(f"tier {tier}: {mesh_launches[tier]} launches over "
-                                 f"{MESH_TIER_ITERS} iterations, {queries[0]} Python calls")
-        phase("mesh_render", scene="cornellShipTex", tier=tier, iterations=MESH_TIER_ITERS,
-              mesh_launches=mesh_launches[tier], mesh_queries=queries[0])
-    # The same 4 iterations through the kernel and through the plain tier,
+    # The same 4 iterations through the kernel and through the plain query,
     # then through the kernel with the f32 winner table instead of oct.
-    # The plain tier selects with boolean masks (host syncs): eager.
+    # The plain query selects with boolean masks (host syncs): eager.
     images = []
     for query, table in ((mh.mesh_hit, "auto"), (plain_mesh_hit, "auto"), (mh.mesh_hit, "f32")):
         r = Renderer(mesh_scene("cornellShipTex"), app_options(winner_table=table), seed=SEED,
@@ -2541,11 +2520,11 @@ def main() -> int:
         if (table == "auto") != (r.options.winner_table == "oct"):
             raise AssertionError(f"winner table {r.options.winner_table} for {table!r}")
     img_cmp = compare_images(images[0], images[1])
-    phase("mesh_render", check="kernel_vs_plain_tier", iterations=MESH_IMAGE_ITERS,
+    phase("mesh_render", check="kernel_vs_plain_query", iterations=MESH_IMAGE_ITERS,
           equal=bool(np.array_equal(images[0], images[1])),
           **{k: f"{v:.3e}" for k, v in img_cmp.items()})
     if img_cmp["rmse_agreeing"] >= PARITY_RMSE or img_cmp["share_gt_1e-2"] >= PARITY_PIXEL_SHARE:
-        raise AssertionError(f"kernel and plain-tier images disagree: {img_cmp}")
+        raise AssertionError(f"kernel and plain-query images disagree: {img_cmp}")
     table_cmp = compare_images(images[0], images[2])  # recorded only: no bar
     phase("mesh_render", check="oct_vs_f32_winner_table", scene="cornellShipTex",
           iterations=MESH_IMAGE_ITERS, equal=bool(np.array_equal(images[0], images[2])),
@@ -2553,16 +2532,11 @@ def main() -> int:
     if not np.isfinite(images[2]).all():
         raise AssertionError("the f32 winner table's image is not finite")
 
-    # The kernel timed with CUDA events on the main path's own queries: the
-    # rows tier's on both scenes, and each other tier's on its own run's.
+    # The kernel timed with CUDA events on the main path's own queries.
     mesh_times = {}
     for name in MESH_SCENES:
         for label, q in zip(("bounce0", "bounce1"), mesh_calls[name]):
-            mesh_times[name, "rows", label] = time_mesh_query(q, scene=name, tier="rows",
-                                                              batch=label)
-    for tier, calls in tier_calls.items():
-        mesh_times["cornellShipTex", tier, "bounce1"] = time_mesh_query(
-            calls[1], scene="cornellShipTex", tier=tier, batch="bounce1")
+            mesh_times[name, label] = time_mesh_query(q, scene=name, batch=label)
 
     # ---- prims: the wavefront's primitive kernel against its plain version ----------
     prims = prims_phase(device)
@@ -2942,23 +2916,22 @@ def main() -> int:
                   "as soon as one ends, the scene record in shared memory; a pixel range per "
                   "launch (the pixel-sharded render); times of whole-image launches",
     }]
-    for tier, kname, line in (("rows", "k2_mesh_rows", 1109), ("lists", "k3_mesh_lists", 967),
-                              ("conds", "k4_mesh_conds", 427)):
-        main_time = mesh_times["cornellShipTex", tier, "bounce1"]
-        kernels.append({
-            "name": kname,
-            "route": "cuda",
-            "source": "mygpuraytracer_tpu_torch/csrc/mesh_hit.cu",
-            "replaces": f"mygpuraytracer_tpu/ops/trace.py:{line}",
-            "launches": mesh_launches[tier],
-            "max_abs_err": mesh_max_abs,
-            "ms": main_time["ms"],
-            "plain_ms": main_time["plain_ms"],
-            "bound_ms": main_time["bound_ms"],
-            "bound_by": main_time["bound_by"],
-            "library_ms": None,
-            "design": "redesigned: per-ray cluster-tree walk, warp-tested leaves (csrc/mesh.cuh)",
-        })
+    main_time = mesh_times["cornellShipTex", "bounce1"]
+    kernels.append({
+        "name": "k2_k3_k4_mesh_hit",
+        "route": "cuda",
+        "source": "mygpuraytracer_tpu_torch/csrc/mesh_hit.cu",
+        "replaces": "mygpuraytracer_tpu/ops/trace.py:1109 (K2 rows), :967 (K3 lists), "
+                    ":427 (K4 conds): three TPU schedules of one query",
+        "launches": mesh_launches["cornellShipTex"],
+        "max_abs_err": mesh_max_abs,
+        "ms": main_time["ms"],
+        "plain_ms": main_time["plain_ms"],
+        "bound_ms": main_time["bound_ms"],
+        "bound_by": main_time["bound_by"],
+        "library_ms": None,
+        "design": "redesigned: per-ray cluster-tree walk, warp-tested leaves (csrc/mesh.cuh)",
+    })
     kernels.append({
         "name": "prims_hit",
         "route": "cuda",

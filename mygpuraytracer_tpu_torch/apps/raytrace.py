@@ -16,8 +16,8 @@ with ``--save-normal`` the first-hit normal AOV as <...>normal.png;
 headless stand-in for the reference's GL window).
 Primitive scenes and meshes of at most 256 faces render through the K1
 kernel on CUDA; larger meshes, textured and bump-mapped ones included
-(e.g. scenes/cornellShipTex.txt), through the wavefront and the mesh tiers'
-kernel (``--mesh-tier``, ``--mesh-sort``, ``--winner-table``), as do
+(e.g. scenes/cornellShipTex.txt), through the wavefront and the cluster
+query's kernel (``--mesh-sort``, ``--winner-table``), as do
 ``--sort-by-material`` runs under ``--megakernel auto``: the material sort
 exists only on the wavefront. The beauty is denoised through the Filter API on the same device (``denoise_beauty``).
 ``--multichip sample|pixels`` renders over a mesh of every visible CUDA
@@ -59,16 +59,12 @@ def parse_args(argv=None):
     p.add_argument("--megakernel", choices=("auto", "on", "off"), default="auto",
                    help="whole-iteration K1 CUDA kernel for supported scenes "
                         "(auto: on for CUDA)")
-    p.add_argument("--mesh-tier", choices=("lists", "rows", "rows_dma", "conds"),
-                   default="rows",
-                   help="mesh tier for meshes of more than 256 faces: the names of the "
-                        "JAX package's tiers, all served by one CUDA kernel here")
     p.add_argument("--mesh-sort", choices=("auto", "off", "need", "coherence"),
                    default="auto",
                    help="reorder of the mesh query's rays (auto: 'need' on CUDA for a "
                         "mesh embedded in a room)")
-    p.add_argument("--winner-table", choices=("auto", "f32", "f16", "oct"), default="auto",
-                   help="the rows tier's winner uv/TBN table (auto: oct on CUDA, f32 on "
+    p.add_argument("--winner-table", choices=("auto", "f32", "oct"), default="auto",
+                   help="the mesh query's winner uv/TBN table (auto: oct on CUDA, f32 on "
                         "the CPU)")
     p.add_argument("--sort-by-material", action="store_true",
                    help="material-sorted wavefront execution (the reference's "
@@ -202,7 +198,7 @@ def main(argv=None) -> int:
               "timings will measure the unsorted megakernel", file=sys.stderr)
     options = RenderOptions(
         antialiasing=not args.no_antialias, depth_of_field=args.depth_of_field,
-        ai_denoise=not args.no_denoise, mesh_tier=args.mesh_tier,
+        ai_denoise=not args.no_denoise,
         mesh_sort={"auto": None, "off": False}.get(args.mesh_sort, args.mesh_sort),
         winner_table=args.winner_table, sort_by_material=args.sort_by_material,
         sort_impl=args.sort_impl, megakernel=mega)

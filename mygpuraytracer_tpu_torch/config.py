@@ -2,12 +2,14 @@
 
 The same option names and defaults as ``mygpuraytracer_tpu/config.py`` (one
 options object can drive both packages in a test). Options whose meaning was
-specific to the TPU keep their names. The port reads every option but
-``dtype``, which the JAX package reads nowhere either: ``rng`` (threefry,
-or the K6 counter stream of ``ops/prng.py``), ``bounce_megakernel`` (the K5
-route for large untextured meshes), and the wavefront's ``sort_by_material``
-/ ``sort_impl``, ``cache_first_bounce`` and ``dir_aov``
-(``render/pathtrace.py``).
+specific to the TPU keep their names. The port reads every option: ``rng``
+(threefry, or the K6 counter stream of ``ops/prng.py``),
+``bounce_megakernel`` (the K5 route for large untextured meshes), and the
+wavefront's ``sort_by_material`` / ``sort_impl``, ``cache_first_bounce`` and
+``dir_aov`` (``render/pathtrace.py``). Three of the JAX package's options
+have no counterpart here: its mesh tier names (three TPU schedules of the
+one mesh query), its trace ``dtype`` (read by neither package) and its
+``"f16"`` winner table.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 SORT_IMPLS = ("fused", "perm", "argsort")
+WINNER_TABLES = ("auto", "f32", "oct")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +57,6 @@ class RenderOptions:
     # Faces per chunk of the Moller-Trumbore mesh stream (the result does
     # not depend on it).
     face_chunk: int = 64
-    # The trace core's dtype on the TPU, kept by name so that one options
-    # object drives both packages. Read by neither package: both trace in
-    # float32.
-    dtype: str = "float32"
     # The wavefront's and K5's random numbers (ops/prng.py): "threefry"
     # (bit-exact with jax.random), "pallas" (the K6 counter stream, a CUDA
     # kernel on CUDA) or "auto" (pallas off the CPU); the CPU always draws
@@ -80,13 +79,10 @@ class RenderOptions:
     # "coherence" by origin cell and direction bin, False keeps pixel order;
     # None: the Renderer picks "need" on CUDA for a mesh embedded in a room.
     mesh_sort: bool | str | None = None
-    # The rows tier's winner uv/TBN table: "f32" exact, "f16" half pairs,
-    # "oct" half pairs + 8-bit octahedral TBN; "auto": oct on CUDA, f32 on
-    # the CPU (the Renderer resolves it).
+    # The mesh query's winner uv/TBN table: "f32" exact, "oct" half pairs +
+    # 8-bit octahedral TBN; "auto": oct on CUDA, f32 on the CPU (the
+    # Renderer resolves it).
     winner_table: str = "auto"
-    # "rows" (K2), "rows_dma" (the same here), "lists" (K3), "conds" (K4):
-    # the TPU's three schedules of the one query; the same image.
-    mesh_tier: str = "rows"
     # The sorted bounce's form, one stable descending-material permutation
     # in each: "fused" (one sort, one gather of the 16 per-lane arrays, 22
     # when textured, the material constants rebuilt from the key), "perm"
@@ -97,6 +93,8 @@ class RenderOptions:
     def __post_init__(self):
         if self.sort_impl not in SORT_IMPLS:
             raise ValueError(f"unknown sort_impl {self.sort_impl!r}")
+        if self.winner_table not in WINNER_TABLES:
+            raise ValueError(f"unknown winner_table {self.winner_table!r}")
 
     @property
     def first_bounce_cache_active(self) -> bool:

@@ -4,13 +4,13 @@
 // Replaces three Pallas kernels of mygpuraytracer_tpu/ops/trace.py that
 // compute this one function and differ only in how the TPU schedules the
 // cluster visits:
-//   K2 mesh_rows_hit   (per-128-ray-row visit lists, near to far, recheck),
-//   K3 mesh_list_hit   (per-(8,128)-block visit lists, ascending),
-//   K4 mesh_pallas_hit (in-kernel slab test and lax.cond per cluster,
+//   K2, the rows tier  (per-128-ray-row visit lists, near to far, recheck),
+//   K3, the lists tier (per-(8,128)-block visit lists, ascending),
+//   K4, the conds tier (in-kernel slab test and lax.cond per cluster,
 //                       body in mesh_cluster_hit / _stream_cluster_faces).
 // Those schedules (and the sublane-shifted face_shift buffer) are for the
 // TPU; here one walk computes their common function. The wrapper is
-// ops/mesh_hit.py; the tier functions in ops/trace.py turn its winner
+// ops/mesh_hit.py; ops/trace.py::mesh_rows_hit turns its winner
 // (barycentrics and face id) into texcoords and the TBN frame.
 //
 // Inputs: rays [7, n] (origin xyz, direction xyz, t_cap), face_gather

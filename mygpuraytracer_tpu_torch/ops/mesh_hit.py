@@ -1,12 +1,12 @@
 """The mesh tiers' nearest-face query: one CUDA kernel for K2, K3 and K4.
 
 The port of the function that ``mygpuraytracer_tpu/ops/trace.py``'s three
-Pallas mesh tiers compute (``mesh_rows_hit``, ``mesh_list_hit``,
-``mesh_pallas_hit``): for each ray, the nearest face of the clustered mesh
-with HIT_EPS < t < t_cap. Source: ``csrc/mesh_hit.cu``, which walks the
-cluster tree per ray (``dev.cluster_tree``) and tests the leaves with the
-whole warp from ``dev.face_gather``; the plain version walks the plane-form
-faces ``face_plane`` [16, Fp] cluster by cluster over their AABBs [6, C].
+Pallas mesh tiers compute (K2 rows, K3 lists, K4 conds): for each ray, the
+nearest face of the clustered mesh with HIT_EPS < t < t_cap. Source:
+``csrc/mesh_hit.cu``, which walks the cluster tree per ray
+(``dev.cluster_tree``) and tests the leaves with the whole warp from
+``dev.face_gather``; the plain version walks the plane-form faces
+``face_plane`` [16, Fp] cluster by cluster over their AABBs [6, C].
 
 Rays come as one [7, N] float32 tensor (origin xyz, direction xyz, t_cap).
 The result is one [8, N] float32 tensor: t (inf where no face beats t_cap),

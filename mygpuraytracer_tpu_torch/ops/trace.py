@@ -12,14 +12,15 @@ Counterpart of ``mygpuraytracer_tpu/ops/trace.py``:
   (on CUDA tensors one launch of ``ops/prims_hit.py``'s kernel, on CPU
   tensors ``intersect_primitives_soa``, which it equals bit for bit) and
   merges a mesh query into it. Meshes of more than 256 faces go through the
-  cluster tiers when ``mesh_pallas`` is on (the default on CUDA tensors):
-  ``mesh_rows_hit`` (K2), ``mesh_list_hit`` (K3) and ``mesh_pallas_hit``
-  (K4) all run one nearest-face query, ``ops/mesh_hit.py``, which launches
-  the CUDA kernel on CUDA tensors and runs its plain version on CPU tensors;
-  they differ only in how they turn the winner into texcoords and the TBN
-  frame. Otherwise the faces stream in chunks through Moller-Trumbore (the
-  CPU default and the oracle of the goldens), where the lowest face index
-  wins a tie;
+  cluster query ``mesh_rows_hit`` when ``mesh_pallas`` is on (the default
+  on CUDA tensors): one nearest-face query, ``ops/mesh_hit.py``, which
+  launches the CUDA kernel on CUDA tensors and runs its plain version on
+  CPU tensors, then the winner's texcoords and TBN frame from one row of a
+  winner table. It is the counterpart of all three of the JAX package's
+  mesh tiers (K2 rows, K3 lists, K4 conds), which are TPU schedules of that
+  one query. Otherwise the faces stream in chunks through Moller-Trumbore
+  (the CPU default and the oracle of the goldens), where the lowest face
+  index wins a tie;
 - ``bvh_scene_hit``, ``mesh_nearfar_hit`` and ``bvh_scene_hit_nearfar`` are
   the plain versions of the whole-scene query that K5 (``csrc/bounce.cu``)
   computes for untextured meshes: the primitives, then the nearest face
@@ -361,50 +362,14 @@ def _mesh_sort_key(meta, o: Vec3, d: Vec3) -> torch.Tensor:
 
 
 def _winner_ex(dev, winner_table: str) -> torch.Tensor:
-    """The rows tier's deferred winner gather table for a resolved
-    ``winner_table`` (the Renderer resolves "auto")."""
-    if winner_table == "f16":
-        return dev.face_ex_h
+    """The mesh query's winner table for a resolved ``winner_table`` (the
+    Renderer resolves "auto")."""
     if winner_table == "oct":
         return dev.face_ex_o
     if winner_table == "f32":
         return dev.face_ex_t
-    raise ValueError(f"winner_table must be resolved to f32/f16/oct here, got {winner_table!r} "
+    raise ValueError(f"winner_table must be resolved to f32/oct here, got {winner_table!r} "
                      "(resolve 'auto' via Renderer before intersect_soa)")
-
-
-def _cluster_visit_lists(meta, o: Vec3, d: Vec3, t_cap, tile: int, order_by_tin: bool = False):
-    """Per block of ``tile`` rays, the clusters any of its rays can reach
-    closer than its t_cap: (lists i32[B, C], visited first, then the rest;
-    counts i32[B, 1]). Visited clusters come ascending by id, or near to
-    far by the block's least entry distance with ``order_by_tin``. The
-    schedule the TPU tiers K2/K3 stream; the CUDA kernel decides its visits
-    itself, so only the tests use it. N must be a multiple of ``tile``."""
-    C = len(meta.mesh_clusters)
-    dev_ = o.x.device
-    cmin = torch.tensor([c[0] for c in meta.mesh_clusters], dtype=torch.float32, device=dev_)
-    cmax = torch.tensor([c[1] for c in meta.mesh_clusters], dtype=torch.float32, device=dev_)
-
-    def axis(i, oa, da):
-        inv = 1.0 / torch.where(da.abs() < 1e-20, 1e-20, da)
-        t1 = (cmin[:, i][None, :] - oa[:, None]) * inv[:, None]
-        t2 = (cmax[:, i][None, :] - oa[:, None]) * inv[:, None]
-        return torch.minimum(t1, t2), torch.maximum(t1, t2)
-
-    ax, bx = axis(0, o.x, d.x)
-    ay, by = axis(1, o.y, d.y)
-    az, bz = axis(2, o.z, d.z)
-    tin = torch.maximum(torch.maximum(ax, ay), az)
-    tout = torch.minimum(torch.minimum(bx, by), bz)
-    m = (tout >= tin.clamp_min(0.0)) & (tin < t_cap[:, None])  # [N, C]
-    mb = m.reshape(-1, tile, C).any(dim=1)  # [B, C]
-    counts = mb.sum(dim=1, dtype=torch.int32)[:, None]
-    if order_by_tin:
-        tinb = torch.where(m, tin, INF).reshape(-1, tile, C).amin(dim=1)
-        key = torch.where(mb, tinb, INF)
-    else:
-        key = (~mb).to(torch.int32)
-    return torch.argsort(key, dim=1, stable=True).to(torch.int32), counts
 
 
 def _cluster_bounds(meta, device) -> torch.Tensor:
@@ -413,7 +378,7 @@ def _cluster_bounds(meta, device) -> torch.Tensor:
 
 
 def _nearest_face(meta, fp, o: Vec3, d: Vec3, t_cap, bounds, face_gather, tree) -> torch.Tensor:
-    """The tiers' one query (ops/mesh_hit.py): [8, N] t, fn xyz, geom id,
+    """The nearest-face query (ops/mesh_hit.py): [8, N] t, fn xyz, geom id,
     barycentric u, v, face id."""
     if bounds is None:
         bounds = _cluster_bounds(meta, o.x.device)
@@ -441,17 +406,15 @@ def _oct8_decode(qx: torch.Tensor, qy: torch.Tensor):
 
 
 def mesh_rows_hit(meta, fs, o: Vec3, d: Vec3, t_cap, with_uv: bool = False,
-                  with_tb: bool = False, dma: bool | None = None, ex=None, bounds=None,
-                  face_gather=None, tree=None):
-    """K2, the rows tier (``mesh_tier="rows"``, and ``"rows_dma"``): the
-    nearest mesh face closer than ``t_cap`` per ray, with the winner's uv
-    and TBN gathered afterwards from the table ``ex``, one row per winner:
-    ``dev.face_ex_t`` (f32 [Fp, 12]), ``face_ex_h`` (f16 pairs [Fp, 6]) or
-    ``face_ex_o`` (f16 uv pairs + octahedral TBN [Fp, 4]).
+                  with_tb: bool = False, ex=None, bounds=None, face_gather=None, tree=None):
+    """The mesh query (the JAX package's K2, K3 and K4): the nearest mesh
+    face closer than ``t_cap`` per ray, with the winner's uv and TBN
+    gathered afterwards from the table ``ex``, one row per winner:
+    ``dev.face_ex_t`` (f32 [Fp, 12]) or ``face_ex_o`` (f16 uv pairs +
+    octahedral TBN [Fp, 4]).
 
     ``fs`` is the face buffer, ``dev.face_plane``: the TPU read its
-    sublane-shifted copy, which the port does not build. ``dma`` chose the
-    buffer's residence on the TPU and changes nothing here. ``bounds`` is
+    sublane-shifted copy, which the port does not build. ``bounds`` is
     ``dev.cluster_bounds`` (built from ``meta`` when None); the kernel, on
     CUDA tensors, walks ``face_gather`` and ``tree`` (``dev.face_gather``,
     ``dev.cluster_tree``), which CPU tensors do not need.
@@ -466,18 +429,16 @@ def mesh_rows_hit(meta, fs, o: Vec3, d: Vec3, t_cap, with_uv: bool = False,
 
 
 def _winner_extras(out: torch.Tensor, ex, with_uv: bool, with_tb: bool) -> tuple:
-    """The rows tier's deferred fetch: the winner's texcoord and TBN frame
+    """The mesh query's deferred fetch: the winner's texcoord and TBN frame
     from one row of the winner table ``ex`` per lane, decoded by its kind
-    (f32 [Fp, 12], f16 pairs [Fp, 6], f16 pairs + oct8 TBN [Fp, 4])."""
+    (f32 [Fp, 12], f16 pairs + oct8 TBN int32 [Fp, 4])."""
     if not (with_uv or with_tb):
         return ()
     u_b, v_b = out[5], out[6]
     gathered = ex[out[7].to(torch.int64).clamp(0, ex.shape[0] - 1)]
-    oct_mode = ex.dtype == torch.int32 and ex.shape[1] == 4
+    oct_mode = ex.dtype == torch.int32
     if oct_mode:
         cols = _unpack_f16_pairs(gathered[:, :3])  # [N, 6] uv coefficients
-    elif ex.dtype == torch.int32:
-        cols = _unpack_f16_pairs(gathered)  # [N, 12]
     else:
         cols = gathered  # [N, 12] f32
     extras = []
@@ -491,39 +452,6 @@ def _winner_extras(out: torch.Tensor, ex, with_uv: bool, with_tb: bool) -> tuple
         else:
             extras += [cols[:, 6 + j] for j in range(6)]
     return tuple(extras)
-
-
-def _plane_ex_extras(out: torch.Tensor, ex, with_uv: bool, with_tb: bool) -> tuple:
-    """The winner's texcoord uv0 + u*duv1 + v*duv2 and TBN frame from the
-    f32 plane extension ``ex`` [16, Fp] (zeros where no mesh face won)."""
-    if not (with_uv or with_tb):
-        return ()
-    e = ex[:, out[7].to(torch.int64)]
-    u, v = out[5], out[6]
-    extras = []
-    if with_uv:
-        extras += [e[0] + u * e[2] + v * e[4], e[1] + u * e[3] + v * e[5]]
-    if with_tb:
-        extras += [e[8 + j] for j in range(6)]
-    win = out[4] >= 0.0
-    return tuple(torch.where(win, x, 0.0) for x in extras)
-
-
-def mesh_list_hit(meta, fp, o: Vec3, d: Vec3, t_cap, ex=None, with_uv: bool = False,
-                  with_tb: bool = False, bounds=None, face_gather=None, tree=None):
-    """K3, the lists tier (``mesh_tier="lists"``): the same query as
-    :func:`mesh_rows_hit`, with uv and TBN taken from ``ex`` =
-    ``dev.face_plane_ex``. Returns (t, face normal Vec3, geom id, extras)."""
-    out = _nearest_face(meta, fp, o, d, t_cap, bounds, face_gather, tree)
-    return (out[0], Vec3(out[1], out[2], out[3]), out[4],
-            _plane_ex_extras(out, ex, with_uv, with_tb))
-
-
-def mesh_pallas_hit(meta, fp, o: Vec3, d: Vec3, t_cap, ex=None, with_uv: bool = False,
-                    with_tb: bool = False, bounds=None, face_gather=None, tree=None):
-    """K4, the conds tier (``mesh_tier="conds"``): the same query and
-    outputs as :func:`mesh_list_hit`."""
-    return mesh_list_hit(meta, fp, o, d, t_cap, ex, with_uv, with_tb, bounds, face_gather, tree)
 
 
 def _merge_mesh_winner(meta, run: _Running, win, mt, fn: Vec3, gf) -> Vec3:
@@ -580,11 +508,12 @@ def bvh_scene_hit_nearfar(meta, fp, o: Vec3, d: Vec3, active, bounds=None) -> Hi
     return hit._replace(hit=hit.hit & active, t=torch.where(active, hit.t, INF))
 
 
-def uses_mesh_tiers(meta, mesh_pallas: bool | None, device) -> bool:
-    """Whether :func:`intersect_soa` sends the scene's meshes to the mesh
-    tiers (``mesh_pallas``, None: on for a CUDA ``device``; a mesh of more
-    than 256 faces in clusters), whose shapes are static, rather than the
-    chunked stream, which compacts the live lanes."""
+def uses_cluster_query(meta, mesh_pallas: bool | None, device) -> bool:
+    """Whether :func:`intersect_soa` sends the scene's meshes to the
+    cluster query :func:`mesh_rows_hit` (``mesh_pallas``, None: on for a
+    CUDA ``device``; a mesh of more than 256 faces in clusters), whose
+    shapes are static, rather than the chunked stream, which compacts the
+    live lanes."""
     if mesh_pallas is None:
         mesh_pallas = torch.device(device).type == "cuda"
     return bool(mesh_pallas and meta.mesh_clusters and meta.num_faces > 256)
@@ -593,21 +522,21 @@ def uses_mesh_tiers(meta, mesh_pallas: bool | None, device) -> bool:
 def intersect_soa(
     meta, dev, o: Vec3, d: Vec3, face_chunk: int = 128, bounding_box: bool = False,
     mesh_pallas: bool | None = None, mesh_sort: bool | str = False,
-    mesh_tier: str = "lists", winner_table: str = "f32",
-    active: torch.Tensor | None = None,
+    winner_table: str = "f32", active: torch.Tensor | None = None,
 ) -> HitSoA:
     """Nearest hit over the whole scene with materials resolved in-loop.
 
     - ``mesh_pallas`` (None: on for CUDA tensors) sends meshes of more than
-      256 faces through the cluster tier ``mesh_tier`` ("rows", "rows_dma",
-      "lists", "conds"); otherwise the chunked Moller-Trumbore stream runs.
+      256 faces through the cluster query :func:`mesh_rows_hit`, whose
+      winner texcoords and TBN come from the table ``winner_table`` ("f32"
+      or "oct"); otherwise the chunked Moller-Trumbore stream runs.
     - ``mesh_sort`` ("need"/True or "coherence") stably sorts the rays
-      before the tier query and scatters the result back: the same result,
-      more coherent blocks.
+      before the cluster query and scatters the result back: the same
+      result, more coherent blocks.
     - ``bounding_box``: the reference's AABB pre-test (pathtrace.cu:348-353)
       for the chunked stream; the same hit either way.
     - ``active`` (bool[N]) marks the lanes whose result the caller uses.
-      Dead lanes query the tiers as padding rays (far origin, +x, t_cap 0),
+      Dead lanes query the clusters as padding rays (far origin, +x, t_cap 0),
       which visit no cluster, and the chunked stream skips them; their mesh
       result is forced to miss.
     - Bump-mapped meshes perturb the winner's normal through its TBN frame
@@ -626,21 +555,12 @@ def intersect_soa(
     with_bump = any(g.bump > 0 for g in meta.geoms)
     zeros = torch.zeros_like(o.x)
 
-    if uses_mesh_tiers(meta, mesh_pallas, o.x.device):
-        if mesh_tier in ("rows", "rows_dma"):
-            table = _winner_ex(dev, winner_table)
-            query = lambda ov, dv, tc: mesh_rows_hit(
-                meta, dev.face_plane, ov, dv, tc, with_uv=meta.has_textures,
-                with_tb=with_bump, ex=table, bounds=dev.cluster_bounds,
-                face_gather=dev.face_gather, tree=dev.cluster_tree)
-        elif mesh_tier in ("lists", "conds"):
-            tier_fn = mesh_list_hit if mesh_tier == "lists" else mesh_pallas_hit
-            query = lambda ov, dv, tc: tier_fn(
-                meta, dev.face_plane, ov, dv, tc, ex=dev.face_plane_ex,
-                with_uv=meta.has_textures, with_tb=with_bump, bounds=dev.cluster_bounds,
-                face_gather=dev.face_gather, tree=dev.cluster_tree)
-        else:
-            raise ValueError(f"unknown mesh_tier {mesh_tier!r}")
+    if uses_cluster_query(meta, mesh_pallas, o.x.device):
+        table = _winner_ex(dev, winner_table)
+        query = lambda ov, dv, tc: mesh_rows_hit(
+            meta, dev.face_plane, ov, dv, tc, with_uv=meta.has_textures,
+            with_tb=with_bump, ex=table, bounds=dev.cluster_bounds,
+            face_gather=dev.face_gather, tree=dev.cluster_tree)
         if mesh_sort:
             key = (_mesh_sort_key(meta, o, d) if mesh_sort == "coherence"
                    else (~mesh_aabb_mask(meta, o, d)).to(torch.int32))

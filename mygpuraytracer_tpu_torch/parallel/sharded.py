@@ -44,12 +44,6 @@ from ..utils.profiling import named_scope
 from .mesh import Mesh, psum, replicate, split
 
 
-def _megakernel_route(meta: SceneMeta, options: RenderOptions) -> bool:
-    """Where the Renderer takes K1/K5 (``Renderer.use_megakernel``)."""
-    return bool(options.megakernel and not options.dir_aov
-                and megakernel.supports_megakernel(meta, options))
-
-
 def _replicated(dev, mesh: Mesh) -> list:
     """``dev`` once per device: a DeviceScene is replicated (in the span
     ``mygpurt.multichip.replicate``), a list from :func:`~.mesh.replicate`
@@ -77,7 +71,7 @@ def render_multichip_sample(dev, meta: SceneMeta, options: RenderOptions, base_k
     if per_dev * n_dev != spp:
         raise ValueError(f"spp {spp} must divide evenly over {n_dev} devices")
     n = meta.resolution[0] * meta.resolution[1]
-    mega = _megakernel_route(meta, options)
+    mega = megakernel.route(meta, options) != "wavefront"
     accs = []
     for d, (device, dev_d) in enumerate(zip(mesh.devices, _replicated(dev, mesh))):
         with named_scope("mygpurt.multichip.launch"):
@@ -130,7 +124,7 @@ def sharded_render_step(meta: SceneMeta, options: RenderOptions, mesh: Mesh):
     if n % mesh.size:
         raise ValueError("pixel count must divide the mesh size")
     ranges = split(n, mesh)
-    mega = _megakernel_route(meta, options)
+    mega = megakernel.route(meta, options) != "wavefront"
     # The scene last passed, its cameras' versions, its copies and K1/K5's records.
     held = {"key": (), "versions": (), "copies": []}
 

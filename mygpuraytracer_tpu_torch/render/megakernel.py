@@ -56,11 +56,9 @@ import torch
 from ..ops import prng, rng
 from ..ops.mesh_hit import MAX_TREE_DEPTH, tree_depth
 from ..ops.trace import bvh_scene_hit_nearfar
-from ..ops.vec3 import Vec3
 from ..scene.device_scene import CameraParams, DeviceScene, SceneMeta
 from .camera import generate_camera_rays
-from .pathtrace import (SampleOutput, accumulate_sample, num_rng_streams, trace_sample,
-                        wavefront_sample)
+from .pathtrace import accumulate_sample, num_rng_streams, trace_sample, wavefront_sample
 
 # Record layout; csrc/megakernel.cu reads the same offsets.
 HEADER = 16  # [num_geoms, num_faces, camera: pos3 view3 up3 right3 pixel_length2]
@@ -96,6 +94,16 @@ def supports_megakernel(meta: SceneMeta, options) -> bool:
         or (options.bounce_megakernel and bool(meta.mesh_clusters))
     )
     return bool(mesh_ok and not meta.has_textures and not options.first_bounce_cache_active)
+
+
+def route(meta: SceneMeta, options) -> str:
+    """The route an iteration takes, the one place that decides it: "k1"
+    or "k5" with ``options.megakernel`` on a scene the kernels support
+    (:func:`supports_megakernel`) and no ``dir_aov``, K5 for a mesh that
+    takes the cluster walk (:func:`_uses_bvh`); else "wavefront"."""
+    if not (options.megakernel and not options.dir_aov and supports_megakernel(meta, options)):
+        return "wavefront"
+    return "k5" if _uses_bvh(meta) else "k1"
 
 
 def scene_record(meta: SceneMeta, camera: CameraParams) -> torch.Tensor:
@@ -376,21 +384,12 @@ def accumulate(dev: DeviceScene, meta: SceneMeta, options, acc: torch.Tensor,
                record: torch.Tensor | None = None,
                pixels: tuple[int, int] | None = None) -> torch.Tensor:
     """Accumulate ``num_iters`` iterations into ``acc`` [9, N] ([9, count]
-    for the pixel range ``pixels``) through the whole-iteration kernel the
-    scene takes: K5 (:func:`bvh_bounce_accumulate`) for a large mesh under
-    ``bounce_megakernel``, else K1 (:func:`megakernel_accumulate`)."""
-    run = bvh_bounce_accumulate if _uses_bvh(meta) else megakernel_accumulate
+    for the pixel range ``pixels``) through the whole-iteration kernel of
+    the scene's :func:`route`: K5 (:func:`bvh_bounce_accumulate`) or K1
+    (:func:`megakernel_accumulate`)."""
+    kind = route(meta, options)
+    if kind == "wavefront":
+        raise ValueError("scene/options take the wavefront, not K1 or K5 (see route)")
+    run = bvh_bounce_accumulate if kind == "k5" else megakernel_accumulate
     return run(dev, meta, options, acc, start_iteration, num_iters, base_key, record=record,
                pixels=pixels)
-
-
-def megakernel_sample(dev: DeviceScene, meta: SceneMeta, options, iteration: int,
-                      base_key: rng.Key,
-                      pixels: tuple[int, int] | None = None) -> SampleOutput:
-    """One iteration through :func:`accumulate` into a zeroed accumulator:
-    this sample's color * pi and, at iteration 1, its first-hit albedo and
-    normal (zeros otherwise), as ``render_sample`` returns them."""
-    _, _, count = _pixel_range(meta, pixels)
-    acc = torch.zeros((9, count), dtype=torch.float32, device=dev.camera.position.device)
-    accumulate(dev, meta, options, acc, iteration, 1, base_key, pixels=pixels)
-    return SampleOutput(color=Vec3(*acc[0:3]), albedo=Vec3(*acc[3:6]), normal=Vec3(*acc[6:9]))

@@ -29,13 +29,11 @@ The wavefront reads three options the kernels do not have:
   (``SampleOutput.dirmap``/``dirlum``). It turns the sort off and skips the
   megakernel route.
 
-With ``options.megakernel`` on a scene the kernels support (and no
-``dir_aov``), ``render_sample`` takes the JAX package's megakernel route:
-one iteration through K1 or, for large untextured meshes under
-``bounce_megakernel``, K5 (``render/megakernel.py::megakernel_sample``).
-Otherwise every bounce queries the scene through
+``render_sample`` is the wavefront's entry; its callers route first
+(``render/megakernel.py::route``): K1 and K5 run through
+``megakernel.accumulate``. Every bounce queries the scene through
 ``ops/trace.py::intersect_soa`` with the options' mesh settings: on CUDA
-tensors a mesh of more than 256 faces goes through the mesh tiers' CUDA
+tensors a mesh of more than 256 faces goes through the cluster query's CUDA
 kernel (ops/mesh_hit.py), everything else is PyTorch. The kernels' plain
 versions run ``wavefront_sample``/``trace_sample`` with the three options
 off (their keyword defaults).
@@ -242,17 +240,12 @@ def render_sample(
     pixels: tuple[int, int] | None = None,
     first: bool | None = None,
 ) -> SampleOutput:
-    """One iteration under ``options`` (over the pixel range ``pixels``, or
-    the whole image). ``cache`` is the first-bounce cache
-    (``make_empty_cache``; None: none yet); the result carries its update.
-    ``first``: whether this is iteration 1 (None: :func:`is_first`); the
-    megakernel route takes it from the iteration itself."""
-    if options.megakernel and not options.dir_aov:
-        from .megakernel import megakernel_sample, supports_megakernel
-
-        if supports_megakernel(meta, options):
-            out = megakernel_sample(dev, meta, options, iteration, base_key, pixels)
-            return out._replace(cache=cache)
+    """One wavefront iteration under ``options`` (over the pixel range
+    ``pixels``, or the whole image), whatever ``options.megakernel`` says:
+    the caller routes (``render/megakernel.py::route``). ``cache`` is the
+    first-bounce cache (``make_empty_cache``; None: none yet); the result
+    carries its update. ``first``: whether this is iteration 1 (None:
+    :func:`is_first`)."""
     return wavefront_sample(
         dev, meta, options, iteration, base_key, cache,
         sort=options.sort_by_material and meta.num_geoms > 1 and not options.dir_aov,
@@ -276,7 +269,7 @@ def wavefront_sample(dev: DeviceScene, meta: SceneMeta, options: RenderOptions,
     query = lambda o, d, active=None: intersect_soa(
         meta, dev, o, d, options.face_chunk, bounding_box=options.bounding_box,
         mesh_pallas=options.mesh_pallas, mesh_sort=options.mesh_sort,
-        mesh_tier=options.mesh_tier, winner_table=options.winner_table, active=active)
+        winner_table=options.winner_table, active=active)
     return trace_sample(dev, meta, options, iteration, U, query, cache, sort=sort,
                         cache_first_bounce=cache_first_bounce, dir_aov=dir_aov,
                         p0=pixels[0] if pixels is not None else 0, first=first)

@@ -18,8 +18,9 @@ than 256 faces under ``bounce_megakernel``, through K5, one launch per
 iteration. Otherwise it runs the wavefront sample by sample
 (render/pathtrace.py) with the material sort, the cache and the dir AOV as
 the options ask, where a mesh of more than 256 faces, textured or not,
-goes through the mesh tiers: their CUDA kernel on a CUDA device, its plain
-version on the CPU (ops/mesh_hit.py). ``move_camera`` moves the camera and
+goes through the cluster query: its CUDA kernel on a CUDA device, its
+plain version on the CPU (ops/mesh_hit.py). ``megakernel.route`` decides
+the route (``route``). ``move_camera`` moves the camera and
 resets the accumulation (main.cpp:222-248).
 
 On CUDA, ``step``/``step_many`` replay captured CUDA graphs, as the JAX
@@ -32,17 +33,17 @@ the wavefront route every later iteration 1, after a ``reset`` or a
 while the K5 route runs each iteration 1 eagerly. The route is
 chosen up front (``graph_route``): the K1 route is already one launch per
 batch and stays as it is, and a wavefront whose mesh query compacts its
-live lanes (a mesh off the mesh tiers: ``mesh_pallas=False``, or a mesh
-too small for them) has data-dependent shapes and runs eagerly. The CPU
+live lanes (a mesh off the cluster query: ``mesh_pallas=False``, or a
+mesh too small for it) has data-dependent shapes and runs eagerly. The CPU
 runs eagerly, as does every step inside ``graphs.disabled()``. The
 accumulators, the cache, the camera and K5's record stay where they are
 for the Renderer's life: ``reset`` and ``move_camera`` write them in
 place, so the graphs stay valid.
 
 As in the JAX package, the auto options are resolved once, at
-construction, from the device: on CUDA the mesh tiers are on,
+construction, from the device: on CUDA the cluster query is on,
 ``mesh_sort="need"`` is chosen for a mesh embedded in a primitive room, and
-the rows tier's winner table is ``"oct"``; on the CPU the chunked
+its winner table is ``"oct"``; on the CPU the chunked
 Moller-Trumbore stream runs and the table is ``"f32"``.
 """
 
@@ -55,7 +56,7 @@ import torch
 
 from ..config import RenderOptions
 from ..ops import rng
-from ..ops.trace import uses_mesh_tiers
+from ..ops.trace import uses_cluster_query
 from ..scene.device_scene import build_device_scene, camera_params
 from ..scene.structs import GeomType, Scene
 from ..utils.profiling import named_scope
@@ -97,15 +98,16 @@ def mesh_reach_fraction(scene: Scene, meta, grid: int = 64) -> float:
 
 def _resolve_auto_options(options: RenderOptions, scene: Scene, meta,
                           device) -> RenderOptions:
-    """Resolve ``mesh_sort=None`` (auto) once: "need" where the mesh tiers
-    run (on CUDA unless ``mesh_pallas`` says otherwise) on a mesh embedded
-    in a room of primitives (bounce-0 reach < 30% and >= 4 non-OBJ geoms,
-    which keep the rays that miss the mesh alive); False otherwise."""
+    """Resolve ``mesh_sort=None`` (auto) once: "need" where the cluster
+    query runs (on CUDA unless ``mesh_pallas`` says otherwise) on a mesh
+    embedded in a room of primitives (bounce-0 reach < 30% and >= 4
+    non-OBJ geoms, which keep the rays that miss the mesh alive); False
+    otherwise."""
     if options.mesh_sort is not None:
         return options
     use: bool | str = False
     n_prim = sum(1 for g in meta.geoms if g.type != int(GeomType.OBJ))
-    if (uses_mesh_tiers(meta, options.mesh_pallas, device)
+    if (uses_cluster_query(meta, options.mesh_pallas, device)
             and n_prim >= 4 and mesh_reach_fraction(scene, meta) < 0.30):
         use = "need"
     return dataclasses.replace(options, mesh_sort=use)
@@ -133,11 +135,8 @@ class Renderer:
         self.options = _resolve_winner_table(self.options, self.device)
         self.base_key = rng.make_key(seed)
         self.timer = PerformanceTimer(self.device)
-        self.use_megakernel = bool(
-            self.options.megakernel
-            and not self.options.dir_aov
-            and megakernel.supports_megakernel(self.meta, self.options)
-        )
+        self.route = megakernel.route(self.meta, self.options)  # "k1", "k5" or "wavefront"
+        self.use_megakernel = self.route != "wavefront"
         self.graph_route = self._graph_route()
         self.graph: graphs.Captured | None = None  # a later iteration, captured at its first use
         # The wavefront's iteration 1, captured after the first eager one.
@@ -151,12 +150,12 @@ class Renderer:
     def _graph_route(self) -> str | None:
         """``"wavefront"``, ``"k5"`` or None (eager): decided once, from the
         device and the options."""
-        if self.device.type != "cuda":
-            return None
-        if self.use_megakernel:
-            return "k5" if megakernel._uses_bvh(self.meta) else None  # K1: one launch a batch
-        if self.meta.has_obj and not uses_mesh_tiers(self.meta, self.options.mesh_pallas,
-                                                     self.device):
+        if self.device.type != "cuda" or self.route == "k1":
+            return None  # K1: one launch a batch
+        if self.route == "k5":
+            return "k5"
+        if self.meta.has_obj and not uses_cluster_query(self.meta, self.options.mesh_pallas,
+                                                        self.device):
             return None  # the chunked stream compacts the live lanes (data-dependent shapes)
         return "wavefront"
 

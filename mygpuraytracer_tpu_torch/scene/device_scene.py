@@ -11,11 +11,10 @@ Counterpart of ``mygpuraytracer_tpu/scene/device_scene.py``:
                degenerate triangles to a ``face_chunk`` multiple;
 - clusters  -> the same faces in plane form, ``face_plane`` [16, Fp], laid
                out in 128-face Morton clusters whose AABBs are
-               ``cluster_bounds`` [6, C]: what the mesh tiers read
-               (ops/mesh_hit.py), with the uv/TBN extension
-               ``face_plane_ex`` and the rows tier's winner tables
-               (``face_ex_t`` f32, ``face_ex_h`` f16 pairs, ``face_ex_o``
-               f16 pairs + octahedral TBN);
+               ``cluster_bounds`` [6, C]: what the cluster query reads
+               (ops/mesh_hit.py), and the mesh query's winner tables of
+               uv/TBN (``face_ex_t`` f32, ``face_ex_o`` f16 pairs +
+               octahedral TBN);
 - textures  -> byte-packed atlases (``tex_atlas_w`` one word per texel,
                ``tex_atlas16_w`` four words per texel of a geom's
                kd/ks/ke/bump maps) with static slot tables in ``SceneMeta``;
@@ -105,11 +104,10 @@ class DeviceScene(NamedTuple):
     # of the plane has barycentrics u = x.U - cu, v = x.V - cv. Pad faces
     # have fn = 0 and c = 1e30: their t is inf and never wins.
     face_plane: torch.Tensor  # f32[16, Fp], Fp = faces padded to CLUSTER_SIZE
-    # Rows 0-5: uv0, uv1-uv0, uv2-uv0 (u and v each); rows 8-13: unit
-    # tangent, bitangent. [16, 1] zeros when the scene is untextured.
-    face_plane_ex: torch.Tensor
-    face_ex_t: torch.Tensor  # f32[Fp, 12] rows 0-5 and 8-13 of face_plane_ex, per face
-    face_ex_h: torch.Tensor  # u32-as-i32 [Fp, 6]: face_ex_t as f16 pairs (low half = even column)
+    # Per face: uv0, uv1-uv0, uv2-uv0 (u and v each), unit tangent,
+    # bitangent; f32[Fp, 12], the used rows 0-5 and 8-13 of the plane
+    # extension (_uv_tbn) transposed. f32[1, 12] zeros when untextured.
+    face_ex_t: torch.Tensor
     face_ex_o: torch.Tensor  # u32-as-i32 [Fp, 4]: 3 f16-pair uv words + tx|ty<<8|bx<<16|by<<24 (oct8)
     cluster_bounds: torch.Tensor  # f32[6, C]: min xyz, max xyz of each cluster
     # Rows 0-12 of face_plane, zero-padded to 16, four rows to a float4 and
@@ -395,7 +393,7 @@ def _plane_form(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, geom: np.ndarray
 
 
 def _uv_tbn(e1, e2, uv0, uv1, uv2, fp: int) -> tuple[np.ndarray, np.ndarray]:
-    """(face_tb [n, 6], face_plane_ex [16, fp]): unit tangent/bitangent from
+    """(face_tb [n, 6], plane extension [16, fp]): unit tangent/bitangent from
     world edges and uv deltas (intersections.h:245-279), and the uv
     interpolation coefficients, in float64 then float32."""
     n = len(e1)
@@ -527,20 +525,20 @@ def build_device_scene(
     Fp = _pad_to(max(num_faces, 1), CLUSTER_SIZE)
     face_plane = np.zeros((16, Fp), np.float32)
     face_tb = np.zeros((F, 6), np.float32)
-    face_plane_ex = np.zeros((16, 1), np.float32)
+    plane_ex = np.zeros((16, 1), np.float32)
     if num_faces:
         sl = slice(0, num_faces)
         face_plane = _plane_form(face_v0[sl], face_e1[sl], face_e2[sl], face_geom[sl], Fp)
         if has_textures:
-            face_tb[sl], face_plane_ex = _uv_tbn(
+            face_tb[sl], plane_ex = _uv_tbn(
                 face_e1[sl], face_e2[sl], face_uv0[sl], face_uv1[sl], face_uv2[sl], Fp)
-    # The cluster walk's layouts, for every mesh that takes the tiers or K5.
+    # The cluster walk's layouts, for every mesh that takes the cluster query or K5.
     face_gather = np.zeros((0, 4, CLUSTER_SIZE, 4), np.float32)
     cluster_tree = np.zeros((0, 16), np.float32)
     if num_faces > MEGA_FACE_CAP:
         face_gather = build_face_gather(face_plane)
         cluster_tree = build_cluster_tree(cluster_bounds[0:3].T, cluster_bounds[3:6].T)
-    ex12 = np.ascontiguousarray(face_plane_ex[list(range(6)) + list(range(8, 14))].T)
+    ex12 = np.ascontiguousarray(plane_ex[list(range(6)) + list(range(8, 14))].T)
     otx, oty = _oct8(ex12[:, 6:9])
     obx, oby = _oct8(ex12[:, 9:12])
     oct_word = otx | (oty << np.uint32(8)) | (obx << np.uint32(16)) | (oby << np.uint32(24))
@@ -600,8 +598,7 @@ def build_device_scene(
         face_v0=t(face_v0), face_e1=t(face_e1), face_e2=t(face_e2),
         face_uv0=t(face_uv0), face_uv1=t(face_uv1), face_uv2=t(face_uv2),
         face_geom=t(face_geom), face_tb=t(face_tb),
-        face_plane=t(face_plane), face_plane_ex=t(face_plane_ex), face_ex_t=t(ex12),
-        face_ex_h=words(_pack_f16_pairs(ex12)), face_ex_o=words(face_ex_o),
+        face_plane=t(face_plane), face_ex_t=t(ex12), face_ex_o=words(face_ex_o),
         cluster_bounds=t(cluster_bounds), face_gather=t(face_gather),
         cluster_tree=t(cluster_tree), prim_table=t(primitive_table(geom_statics)),
         mat_color=t(mat_color), mat_spec_color=t(mat_spec_color),

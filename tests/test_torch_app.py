@@ -46,12 +46,11 @@ def test_app_renders_textured_ship(tmp_path):
     """The mesh path's app line on the textured, bump-mapped ship at 16x16:
     four PNGs. On the CPU the mesh query is the chunked stream unless the
     tiers are asked for; the flags parse and reach the options."""
-    args = raytrace.parse_args(["scenes/shipTexOnly.txt", "--mesh-tier", "lists",
-                                "--mesh-sort", "need", "--winner-table", "f16"])
-    assert (args.mesh_tier, args.mesh_sort, args.winner_table) == ("lists", "need", "f16")
+    args = raytrace.parse_args(["scenes/shipTexOnly.txt", "--mesh-sort", "need",
+                                "--winner-table", "oct"])
+    assert (args.mesh_sort, args.winner_table) == ("need", "oct")
     rc = raytrace.main(["scenes/shipTexOnly.txt", "--resolution", "16", "16", "--iterations", "1",
-                        "--device", "cpu", "--quiet", "--mesh-tier", "rows",
-                        "--out-dir", str(tmp_path)])
+                        "--device", "cpu", "--quiet", "--out-dir", str(tmp_path)])
     assert rc == 0
     names = sorted(p.name for p in pathlib.Path(tmp_path).iterdir())
     assert len(names) == 4 and all(n.startswith("shipTexOnly.") for n in names)

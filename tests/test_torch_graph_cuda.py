@@ -38,7 +38,7 @@ from mygpuraytracer_tpu_torch.scene.builtin import cornell_box
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 RES = 64
-APP = dict(megakernel=True, mesh_tier="rows", mesh_sort=None, winner_table="auto")
+APP = dict(megakernel=True, mesh_sort=None, winner_table="auto")
 K5 = dict(megakernel=True, bounce_megakernel=True, rng="auto")
 CASES = {
     "cornell_dof_sort": ("cornell", dict(depth_of_field=True, antialiasing=False,

@@ -56,7 +56,7 @@ from mygpuraytracer_tpu_torch.config import RenderOptions
 from mygpuraytracer_tpu_torch.ops import prng, rng
 from mygpuraytracer_tpu_torch.render import Renderer, graphs, megakernel, pathtrace
 from mygpuraytracer_tpu_torch.render import renderer as renderer_module
-from mygpuraytracer_tpu_torch.ops.trace import uses_mesh_tiers
+from mygpuraytracer_tpu_torch.ops.trace import uses_cluster_query
 from mygpuraytracer_tpu_torch.scene import builtin, load_scene
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -507,11 +507,10 @@ def test_graph_route_from_the_options(case):
     name, opts, want = ROUTES[case]
     r = Renderer(_scene(name, 8), opts, device="cpu")
     r.device = torch.device("cuda")
-    r.use_megakernel = bool(opts.megakernel and not opts.dir_aov
-                            and megakernel.supports_megakernel(r.meta, opts))
+    assert r.route == megakernel.route(r.meta, opts)
     assert r._graph_route() == want
     if name != "cornell":
-        tiers = uses_mesh_tiers(r.meta, opts.mesh_pallas, "cuda")
+        tiers = uses_cluster_query(r.meta, opts.mesh_pallas, "cuda")
         assert tiers == (opts.mesh_pallas is not False)
 
 
@@ -521,7 +520,7 @@ def test_a_small_mesh_runs_eagerly(tmp_path):
     from test_torch_render import write_cube_scene
 
     r = Renderer(load_scene(write_cube_scene(tmp_path)), RenderOptions(), device="cpu")
-    assert r.meta.has_obj and not uses_mesh_tiers(r.meta, r.options.mesh_pallas, "cuda")
+    assert r.meta.has_obj and not uses_cluster_query(r.meta, r.options.mesh_pallas, "cuda")
     r.device = torch.device("cuda")
     assert r._graph_route() is None
 

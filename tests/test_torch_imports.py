@@ -116,7 +116,7 @@ def test_entry_points_default_to_cuda():
     assert raytrace.parse_args(["cornell"]).device == "cuda"
     assert raytrace.parse_args(["cornell"]).megakernel == "auto"
     args = raytrace.parse_args(["scenes/cornellShipTex.txt"])
-    assert (args.mesh_tier, args.mesh_sort, args.winner_table) == ("rows", "auto", "auto")
+    assert (args.mesh_sort, args.winner_table) == ("auto", "auto")
     from mygpuraytracer_tpu_torch.config import RenderOptions
     from mygpuraytracer_tpu_torch.ops.trace import intersect_soa
 

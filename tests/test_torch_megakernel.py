@@ -1,9 +1,10 @@
 """K1's wrapper, its plain version and its routing.
 
 On the CPU, ``megakernel_accumulate`` runs the plain version, which must
-equal the step-by-step wavefront accumulation and ``render_sample``'s
-megakernel route bit for bit (same code, same order), including the rule that the albedo and normal AOVs are taken at
-iteration 1 only. The CUDA kernel itself runs only on the card: the
+equal the step-by-step wavefront accumulation bit for bit (same code, same
+order), including the rule that the albedo and normal AOVs are taken at
+iteration 1 only. ``megakernel.route`` is the one rule that picks K1, K5
+or the wavefront; the Renderer takes its route from it. The CUDA kernel itself runs only on the card: the
 ``requires_cuda`` case holds it against the plain version there
 (chip_smoke.py's bars) and skips here.
 """
@@ -23,8 +24,7 @@ from mygpuraytracer_tpu.scene.device_scene import build_device_scene as jax_buil
 from mygpuraytracer_tpu_torch.config import RenderOptions
 from mygpuraytracer_tpu_torch.ops import rng
 from mygpuraytracer_tpu_torch.render import Renderer, megakernel
-from mygpuraytracer_tpu_torch.render.pathtrace import (accumulate_sample, render_sample,
-                                                       wavefront_sample)
+from mygpuraytracer_tpu_torch.render.pathtrace import accumulate_sample, wavefront_sample
 from mygpuraytracer_tpu_torch.scene import builtin, load_scene
 from mygpuraytracer_tpu_torch.scene.device_scene import build_device_scene
 
@@ -51,11 +51,10 @@ def test_accumulate_equals_plain_and_steps(start, count):
     acc_k = megakernel.megakernel_accumulate(dev, meta, opts, init.clone(), start, count, key)
     acc_p = megakernel.megakernel_accumulate_reference(dev, meta, opts, init.clone(), start,
                                                        count, key)
-    acc_s, acc_r = init.clone(), init.clone()
+    acc_s = init.clone()
     for it in range(start, start + count):
         accumulate_sample(acc_s, wavefront_sample(dev, meta, opts, it, key), it)
-        accumulate_sample(acc_r, render_sample(dev, meta, opts, it, key), it)  # megakernel route
-    assert torch.equal(acc_k, acc_p) and torch.equal(acc_p, acc_s) and torch.equal(acc_s, acc_r)
+    assert torch.equal(acc_k, acc_p) and torch.equal(acc_p, acc_s)
     if start > 1:  # AOVs are only written at iteration 1
         assert torch.equal(acc_k[3:9], init[3:9])
     else:
@@ -146,6 +145,45 @@ def test_supports_megakernel_matches_jax(scene, opts, tmp_path):
     _, tmeta = build_device_scene(ts, device="cpu")
     assert megakernel.supports_megakernel(tmeta, RenderOptions(**opts)) == jax_supports(
         jmeta, JaxOptions(**opts))
+
+
+# (scene, options, route): the one rule, and where it sends each case.
+ROUTE_CASES = {
+    "cornell_k1": ("cornell", dict(megakernel=True), "k1"),
+    "cornellShip_bounce_k5": ("cornellShip.txt", dict(megakernel=True, bounce_megakernel=True),
+                              "k5"),
+    "cornellShip_no_bounce": ("cornellShip.txt", dict(megakernel=True), "wavefront"),
+    "shipTexOnly_textured": ("shipTexOnly.txt", dict(megakernel=True, bounce_megakernel=True),
+                             "wavefront"),
+    "cornell_dir_aov": ("cornell", dict(megakernel=True, dir_aov=True), "wavefront"),
+    "cornell_cache": ("cornell", dict(megakernel=True, antialiasing=False), "wavefront"),
+    "cornell_off": ("cornell", dict(megakernel=False), "wavefront"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_route(case):
+    """``route`` for each case, and the Renderer's attributes on the CPU
+    agree with it: ``use_megakernel`` off the wavefront, ``graph_route``
+    None (the CPU runs eagerly), and for a CUDA device the graph route of
+    the same route (K1 stays one launch a batch)."""
+    name, opts, want = ROUTE_CASES[case]
+    scene = (load_scene(str(REPO / "scenes" / name)) if name.endswith(".txt")
+             else builtin.BUILTIN_SCENES[name]())
+    scene.set_resolution(8, 8)
+    r = Renderer(scene, RenderOptions(**opts), device="cpu")
+    assert megakernel.route(r.meta, r.options) == want
+    assert r.route == want and r.use_megakernel == (want != "wavefront")
+    assert r.graph_route is None
+    r.device = torch.device("cuda")
+    assert r._graph_route() == {"k1": None, "k5": "k5", "wavefront": "wavefront"}[want]
+
+
+def test_accumulate_refuses_the_wavefront_route():
+    dev, meta = _small(res=4)
+    with pytest.raises(ValueError):
+        megakernel.accumulate(dev, meta, RenderOptions(megakernel=True, dir_aov=True),
+                              torch.zeros(9, 16), 1, 1, rng.make_key(0))
 
 
 @pytest.mark.requires_cuda

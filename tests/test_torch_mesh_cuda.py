@@ -12,8 +12,8 @@ Without a CUDA device every case skips: the kernel has no CPU mode.
   (the kernel walks near to far, the plain version in ascending id); the
   counting build gives the timed build's outputs, and so does every block
   size the launch takes.
-- Each tier name (rows, lists, conds) through ``intersect_soa`` on the
-  card, once with the kernel and once with the plain version in its place
+- The mesh query under each winner table (oct, f32) through
+  ``intersect_soa`` on the card, once with the kernel and once with the plain version in its place
   on the same CUDA tensors: every field of the hit equal. (Against the CPU
   the primitives' t already differs in the last place: PyTorch's CUDA
   rsqrt is not the CPU's 1/sqrt.)
@@ -95,14 +95,13 @@ def test_kernel_equals_plain_bit_for_bit(scene):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("tier", ["rows", "lists", "conds"])
+@pytest.mark.parametrize("table", ["oct", "f32"])
 @pytest.mark.parametrize("scene", list(SCENES))
-def test_tier_on_card_matches_plain_tier(scene, tier, monkeypatch):
+def test_tier_on_card_matches_plain_tier(scene, table, monkeypatch):
     _need_cuda()
     dev, meta = build_device_scene(load_scene(str(REPO / f"scenes/{scene}.txt")), device="cuda")
     o, d = _vec(_rays(N, 3, SCENES[scene])[0], "cuda"), _vec(_rays(N, 3, SCENES[scene])[1], "cuda")
-    kw = dict(mesh_pallas=True, mesh_tier=tier, mesh_sort="need",
-              winner_table="oct" if tier == "rows" else "f32")
+    kw = dict(mesh_pallas=True, mesh_sort="need", winner_table=table)
     before = mh.LAUNCHES
     hk = trace.intersect_soa(meta, dev, o, d, **kw)
     torch.cuda.synchronize()

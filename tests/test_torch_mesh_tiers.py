@@ -1,9 +1,11 @@
-"""The port's mesh tiers K2/K3/K4 against the JAX package's, on the CPU.
+"""The port's one mesh query against each of the JAX package's mesh tiers
+K2/K3/K4, on the CPU.
 
 The same rays, made with numpy from a seed, go through JAX's
 ``intersect_soa(..., mesh_pallas=True, mesh_tier=t)``, whose Pallas kernel
-runs in interpret mode on the CPU, and through the port's, whose tiers run
-the plain version of the mesh CUDA kernel (ops/mesh_hit.py) on CPU tensors.
+runs in interpret mode on the CPU, and through the port's
+``intersect_soa(..., mesh_pallas=True)``, whose cluster query runs the plain
+version of the mesh CUDA kernel (ops/mesh_hit.py) on CPU tensors.
 Scene: cornellShip (23,328 faces in 183 clusters inside the Cornell walls,
 so t_cap pruning against the walls is exercised); 1,101 rays, one (8, 128)
 tile and a ragged tail, half of them aimed at the ship (tests/test_fastpath.py).
@@ -96,22 +98,9 @@ def test_tier_matches_jax_tier(tier):
     jfn = jax.jit(lambda dv, o_, d_: jax_trace.intersect_soa(
         jmeta, dv, o_, d_, 128, mesh_pallas=True, mesh_tier=tier))
     jh = jfn(jdev, _jax3(o), _jax3(d))
-    th = trace.intersect_soa(meta, dev, _torch3(o), _torch3(d), 128, mesh_pallas=True,
-                             mesh_tier=tier)
+    th = trace.intersect_soa(meta, dev, _torch3(o), _torch3(d), 128, mesh_pallas=True)
     assert int(th.is_obj.sum()) > N_RAYS // 5  # plenty of mesh winners compared
     assert_hits_match_jax(jh, th)
-
-
-def test_tiers_agree_and_rows_dma_is_rows():
-    _, (dev, meta) = _scenes()
-    o, d = _torch3(ship_rays()[0]), _torch3(ship_rays()[1])
-    base = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, mesh_tier="rows")
-    for tier in ("rows_dma", "lists", "conds"):
-        other = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, mesh_tier=tier)
-        for name in FIELDS:
-            assert torch.equal(getattr(base, name), getattr(other, name)), (tier, name)
-    with pytest.raises(ValueError):
-        trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, mesh_tier="bogus")
 
 
 def test_plane_tiers_close_to_moller_trumbore():
@@ -120,7 +109,7 @@ def test_plane_tiers_close_to_moller_trumbore():
     on every lane here."""
     _, (dev, meta) = _scenes()
     o, d = _torch3(ship_rays()[0]), _torch3(ship_rays()[1])
-    fast = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, mesh_tier="rows")
+    fast = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True)
     ref = trace.intersect_soa(meta, dev, o, d, mesh_pallas=False)
     t_f = torch.where(fast.hit, fast.t, -1.0).numpy()
     t_r = torch.where(ref.hit, ref.t, -1.0).numpy()
@@ -128,8 +117,8 @@ def test_plane_tiers_close_to_moller_trumbore():
     assert torch.equal(fast.is_obj, ref.is_obj)
 
 
-@pytest.mark.parametrize("tier", ["rows", "lists"])
-def test_dead_lanes_miss_and_visit_nothing(tier):
+@pytest.mark.parametrize("table", ["f32", "oct"])
+def test_dead_lanes_miss_and_visit_nothing(table):
     """``active``: dead lanes report no mesh winner and their t can only
     grow back to the primitives' value; live lanes are bitwise unaffected
     (the JAX model: tests/test_fastpath.py::test_intersect_active_mask_contract)."""
@@ -138,7 +127,7 @@ def test_dead_lanes_miss_and_visit_nothing(tier):
     o, d = _torch3(o_np), _torch3(d_np)
     active = torch.from_numpy(np.random.default_rng(7).random(N_RAYS) < 0.25)
     for sort in (False, "need"):
-        kw = dict(mesh_pallas=True, mesh_tier=tier, mesh_sort=sort)
+        kw = dict(mesh_pallas=True, winner_table=table, mesh_sort=sort)
         full = trace.intersect_soa(meta, dev, o, d, **kw)
         masked = trace.intersect_soa(meta, dev, o, d, active=active, **kw)
         for name in FIELDS:
@@ -172,9 +161,8 @@ def test_padding_rays_visit_no_cluster():
 def test_mesh_sort_scatters_back_exactly(mode):
     _, (dev, meta) = _scenes()
     o, d = _torch3(ship_rays(seed=5)[0]), _torch3(ship_rays(seed=5)[1])
-    base = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, mesh_tier="rows")
-    srt = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, mesh_tier="rows",
-                              mesh_sort=mode)
+    base = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True)
+    srt = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, mesh_sort=mode)
     for name in FIELDS:
         assert torch.equal(getattr(base, name), getattr(srt, name)), name
     for a, b in zip(base.normal, srt.normal):
@@ -195,25 +183,3 @@ def test_bounding_box_gives_identical_hit():
     a = trace.intersect_soa(meta, dev, away, up, mesh_pallas=False, bounding_box=True)
     b = trace.intersect_soa(meta, dev, away, up, mesh_pallas=False)
     assert torch.equal(a.t, b.t) and not a.is_obj.any()
-
-
-@pytest.mark.parametrize("order_by_tin", [False, True])
-def test_cluster_visit_lists_match_jax(order_by_tin):
-    """The TPU tiers' visit schedule, kept as a plain helper: equal to JAX's
-    on 1,024 rays in rows of 128. The kernel's per-ray visits never exceed
-    the visit count of the ray's row (it prunes with its running best)."""
-    (jdev, jmeta), (dev, meta) = _scenes()
-    o_np, d_np = ship_rays(n=1024)
-    run = trace.intersect_primitives_soa(meta, _torch3(o_np), _torch3(d_np))
-    lists, counts = trace._cluster_visit_lists(meta, _torch3(o_np), _torch3(d_np), run.t, 128,
-                                               order_by_tin=order_by_tin)
-    jl, jc = jax_trace._cluster_visit_lists(jmeta, _jax3(o_np), _jax3(d_np),
-                                            jnp.asarray(run.t.numpy()), 128,
-                                            order_by_tin=order_by_tin)
-    np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
-    for row in range(lists.shape[0]):
-        k = int(counts[row, 0])
-        np.testing.assert_array_equal(lists[row, :k].numpy(), np.asarray(jl)[row, :k])
-    rays = torch.stack([*_torch3(o_np), *_torch3(d_np), run.t])
-    _, visits = mh.mesh_hit(dev.face_plane, dev.cluster_bounds, rays, with_visits=True)
-    assert (visits.reshape(-1, 128).amax(dim=1) <= counts[:, 0]).all()

@@ -1,12 +1,13 @@
-"""The port's mesh tiers on a textured, bump-mapped mesh against JAX's.
+"""The port's one mesh query on a textured, bump-mapped mesh against each
+of JAX's mesh tiers.
 
 The scene of tests/test_textured_tier.py, built from the same numpy data in
 both packages: a wavy 18x18 grid mesh (648 faces, so the cluster tiers run)
 with 16x16 kd/ks/ke maps and, in one case, a bump map, plus a wall cube
 behind it and an emissive sphere. 1,085 rays (one (8, 128) tile and a
 ragged tail), half aimed at the mesh. JAX runs its Pallas tier in interpret
-mode; the port runs the plain version of the mesh kernel. The rows tier
-reads the f32 winner table (JAX's default here).
+mode; the port runs the plain version of the mesh kernel. Both read the
+f32 winner table (JAX's default here).
 
 Tolerances, the tightest that hold (JAX's own: t within 2e-3 on > 99.5% of
 lanes, uv within 2e-3 on > 99%, normals within 1e-2 on > 98%):
@@ -121,7 +122,7 @@ def test_textured_tier_matches_jax_tier(tier, with_bump):
              JaxVec3(*(jnp.asarray(d[:, i]) for i in range(3))))
     th = trace.intersect_soa(meta, dev, Vec3(*(torch.from_numpy(o[:, i].copy()) for i in range(3))),
                              Vec3(*(torch.from_numpy(d[:, i].copy()) for i in range(3))),
-                             128, mesh_pallas=True, mesh_tier=tier)
+                             128, mesh_pallas=True)
     for name in ("hit", "is_obj", "material_id", "kd", "ks", "ke", "bump"):
         np.testing.assert_array_equal(getattr(th, name).numpy(), np.asarray(getattr(jh, name)),
                                       err_msg=name)
@@ -140,21 +141,20 @@ def test_textured_tier_matches_jax_tier(tier, with_bump):
             assert close.all()
 
 
-@pytest.mark.parametrize("table,bump_atol", [("f16", 5e-3), ("oct", 0.02)])
+@pytest.mark.parametrize("table,bump_atol", [("oct", 0.02)])
 @pytest.mark.parametrize("with_bump", [False, True])
 def test_winner_table_close_to_f32(table, bump_atol, with_bump):
     """The port's counterpart of tests/test_textured_tier.py's
-    test_winner_table_f16_matches_f32 and _oct_matches_f32, with their
-    bars: the table changes only the deferred uv/TBN fetch, so t and hit
-    are bitwise identical; uv within 2e-3 (f16 rounding of the uv
-    coefficients); texture slots equal on > 99%; normals within 5e-3, or
-    within 0.02 where oct's 8-bit TBN bends a bump-mapped normal."""
+    test_winner_table_oct_matches_f32, with its bars: the table changes
+    only the deferred uv/TBN fetch, so t and hit are bitwise identical; uv
+    within 2e-3 (f16 rounding of the uv coefficients); texture slots equal
+    on > 99%; normals within 5e-3, or within 0.02 where oct's 8-bit TBN
+    bends a bump-mapped normal."""
     dev, meta = build_device_scene(wavy_mesh_scene(structs, with_bump=with_bump), 128,
                                    device="cpu")
     o, d = (Vec3(*(torch.from_numpy(a[:, i].copy()) for i in range(3))) for a in wavy_rays())
-    f32 = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, mesh_tier="rows")
-    low = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, mesh_tier="rows",
-                              winner_table=table)
+    f32 = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True)
+    low = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, winner_table=table)
     assert torch.equal(low.hit, f32.hit) and torch.equal(low.t, f32.t)
     m = f32.is_obj & f32.hit
     assert int(m.sum()) > 200
@@ -172,10 +172,9 @@ def test_textured_tier_mesh_sort_scatters_back():
     dev, meta = build_device_scene(wavy_mesh_scene(structs), 128, device="cpu")
     o, d = (Vec3(*(torch.from_numpy(a[:, i].copy()) for i in range(3)))
             for a in wavy_rays(n=8 * 128, seed=13))
-    base = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, mesh_tier="rows")
+    base = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True)
     for mode in ("need", "coherence"):
-        srt = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, mesh_tier="rows",
-                                  mesh_sort=mode)
+        srt = trace.intersect_soa(meta, dev, o, d, mesh_pallas=True, mesh_sort=mode)
         for name in ("t", "hit", "u", "v", "kd", "bump", "material_id"):
             assert torch.equal(getattr(srt, name), getattr(base, name)), (mode, name)
         for a, b in zip(srt.normal, base.normal):

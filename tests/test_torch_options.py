@@ -344,7 +344,6 @@ def test_dir_aov_zero_on_emitter_alone():
 
 def test_dir_aov_skips_the_megakernel(monkeypatch):
     monkeypatch.setattr(megakernel, "accumulate", _refuse)
-    monkeypatch.setattr(megakernel, "megakernel_sample", _refuse)
     r = Renderer(_cornell(8), RenderOptions(dir_aov=True, megakernel=True), device="cpu")
     assert not r.use_megakernel
     r.render(iterations=2)

@@ -463,7 +463,7 @@ def test_intersect_soa_unchanged_with_kernel_rows(ieee_roots, host_prims, monkey
     dev, meta = build_device_scene(scene, 128, device="cpu")
     o, d = (vec(a) for a in random_rays(300, 9, -4.0, 9.0))
     active = torch.from_numpy(np.random.default_rng(1).random(300) < 0.7) if masked else None
-    kw = dict(mesh_pallas=tiers, mesh_tier="rows", winner_table="oct", mesh_sort="need",
+    kw = dict(mesh_pallas=tiers, winner_table="oct", mesh_sort="need",
               active=active)
     plain = trace.intersect_soa(meta, dev, o, d, 128, **kw)
     _with_host_kernel(monkeypatch, host_prims)

@@ -186,7 +186,7 @@ def test_rows_tier_render_meets_golden():
     an edge takes another path, so the pixel-share rule of chip_smoke.py applies: < 1% of
     pixels off by more than 1e-2, rmse < 1e-3 over the rest."""
     golden = np.load(GOLDEN / "shipTexOnly_32_4spp.npy")
-    r = Renderer(_scene_at("shipTexOnly", 32), RenderOptions(mesh_pallas=True, mesh_tier="rows"),
+    r = Renderer(_scene_at("shipTexOnly", 32), RenderOptions(mesh_pallas=True),
                  seed=0, device="cpu")
     assert r.options.winner_table == "f32"
     r.render(iterations=4, batch=4)

@@ -85,8 +85,15 @@ def test_winner_table_resolution():
     assert jax_renderer._resolve_winner_table(JaxOptions()).winner_table == "f32"  # JAX on CPU
     assert renderer._resolve_winner_table(RenderOptions(), "cpu").winner_table == "f32"
     assert renderer._resolve_winner_table(RenderOptions(), "cuda").winner_table == "oct"
-    for v in ("f32", "f16", "oct"):
+    for v in ("f32", "oct"):
         assert renderer._resolve_winner_table(RenderOptions(winner_table=v), "cuda").winner_table == v
+
+
+def test_f16_winner_table_is_refused():
+    """The port keeps the exact f32 table and CUDA's oct table; the JAX
+    package's f16 table has no counterpart."""
+    with pytest.raises(ValueError, match="winner_table"):
+        RenderOptions(winner_table="f16")
 
 
 def test_renderer_resolves_at_construction_and_renders_textures():
