@@ -58,7 +58,12 @@ each printing one line with its elapsed seconds:
                   of an iteration's 8 bounces, every field bitwise against
                   intersect_primitives_soa, its launches counted on the card
                   (eager and replayed), device ms against its byte bound and
-                  the plain version's ms (prims_time); and two
+                  the plain version's ms (prims_time); the wavefront's
+                  threefry block (csrc/prng.cu) at [28, 640000], bitwise
+                  against rng.uniform, its launches counted on the card
+                  (eager and replayed), device ms against its INT32 and
+                  byte bounds and the plain version's ms (threefry_time);
+                  and two
                   iterations under torch.profiler (mesh_profile): device busy
                   share and the kernels that take the device time
 7. options     -- the wavefront's render options and the Renderer surface:
@@ -1174,6 +1179,56 @@ def prims_phase(device) -> dict:
         times.append((ms, plain_ms, bound_ms))
     ms, plain_ms, bound_ms = (float(np.mean(col)) for col in zip(*times))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                launches=replayed)
+
+
+def threefry_phase(device) -> dict:
+    """The threefry block's kernel (csrc/prng.cu, ``threefry_uniforms``) at
+    the wavefront's [4 + 3 * DEPTH, RES * RES]: its launches over an eager
+    cornellShipTex iteration (one from the host, one counted on the card)
+    and over four graph replays of the main path (four on the card, none
+    from the host; the kernels line reports these), its block bit for bit
+    against ``rng.uniform``'s (the plain int64 ops, on the card), its
+    device ms per launch (queued, alone) against its bounds, and the plain
+    version's ms by CUDA events: the byte bound (the float32 block written
+    once) and the instruction-slot bound (the SASS's threefry instructions
+    a draw at one warp instruction per clock per SM sub-partition,
+    FP32_OPS_PER_S lane instructions/s; nvcc sends part of the adds to the
+    FMA pipe as IMAD, so the 64-lane INT32 rate, reported beside it, is no
+    floor: the kernel ran at ~110% of it). One threefry_time line; returns the kernels
+    line's numbers."""
+    r = Renderer(mesh_scene("cornellShipTex"), app_options(), seed=SEED, device=device)
+    _build.zero_launches_on_device()
+    before = prng.THREEFRY_LAUNCHES
+    with graphs.disabled():
+        r.step()
+    eager = (prng.THREEFRY_LAUNCHES - before, _build.launches_on_device("threefry"))
+    r.step_many(2)  # the later iteration's graph: captured, replayed
+    _build.zero_launches_on_device()
+    before = prng.THREEFRY_LAUNCHES
+    r.step_many(4)
+    replayed = _build.launches_on_device("threefry")
+    if eager != (1, 1) or replayed != 4 or prng.THREEFRY_LAUNCHES != before:
+        raise AssertionError(f"threefry launches: eager (host, card) {eager}, four replays "
+                             f"{replayed}, host {prng.THREEFRY_LAUNCHES - before}")
+    k, n = num_rng_streams(DEPTH), RES * RES
+    key = rng.iteration_key(r.base_key, 2)
+    run = lambda: prng.threefry_uniforms(key, k, n, device=device)
+    plain = lambda: rng.uniform(key, (k, n), device)
+    if not torch.equal(run(), plain()):
+        raise AssertionError("threefry_uniforms differs from rng.uniform")
+    ms = queued_ms(run)
+    plain_ms = float(np.median([cuda_ms(plain) for _ in range(3)]))
+    int_ops = k * n * SASS["threefry_int_per_draw"]
+    slot_ms, bytes_ms = 1e3 * int_ops / FP32_OPS_PER_S, 1e3 * 4 * k * n / HBM_BYTES_PER_S
+    bound_ms, bound_by = max((slot_ms, "instruction slots"), (bytes_ms, "bytes"))
+    phase("threefry_time", shape=f"{k}x{n}", ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.3f}",
+          slot_bound_ms=f"{slot_ms:.5f}", bytes_bound_ms=f"{bytes_ms:.5f}",
+          int32_pipe_ms=f"{1e3 * int_ops / INT32_OPS_PER_S:.5f}",
+          bound_by=bound_by, of_bound=f"{bound_ms / ms:.4f}", int32_ops=f"{int_ops:.4e}",
+          bytes=4 * k * n, equal=True, eager_launches=eager, replay_launches=replayed,
+          library_ms="none")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 launches=replayed)
 
 
@@ -2541,6 +2596,9 @@ def main() -> int:
     # ---- prims: the wavefront's primitive kernel against its plain version ----------
     prims = prims_phase(device)
 
+    # ---- threefry: the wavefront's uniform block against its plain version ----------
+    threefry = threefry_phase(device)
+
     # ---- mesh_profile: where the mesh main path's device time goes ------------------
     r = Renderer(mesh_scene("cornellShipTex"), app_options(), seed=SEED, device=device)
     r.render(iterations=2)  # warm-up: iteration 1 and the capture
@@ -2945,6 +3003,20 @@ def main() -> int:
                   "version's roundings (_rn intrinsics, IEEE division and sqrt, rsqrtf); "
                   "times per launch at 640,000 lanes, means over one iteration's 8 bounces; "
                   "launches over 4 graph-replayed iterations of the main path",
+    })
+    kernels.append({
+        "name": "threefry_uniforms",
+        "route": "cuda",
+        "source": "mygpuraytracer_tpu_torch/csrc/prng.cu",
+        "replaces": "none: jax.random.uniform in the JAX package (ops/rng.py uniform)",
+        "launches": threefry["launches"],
+        "max_abs_err": 0.0,
+        **{key_: threefry[key_] for key_ in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "design": "one thread a column looping over the rows, coalesced row stores, the key "
+                  "by value or fold_in(base, iteration) read from device memory; times per "
+                  "launch at [28, 640000]; launches over 4 graph-replayed iterations of the "
+                  "main path",
     })
     kernels.append({
         "name": "k5_bounce",

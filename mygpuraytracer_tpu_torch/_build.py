@@ -36,6 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every exported function: (restype, argtypes).
 SIGNATURES = {
     # csrc/megakernel.cu
@@ -49,6 +50,7 @@ SIGNATURES = {
                        _P]),
     # csrc/prng.cu
     "k6_uniforms": (_I, [_I, _P, _I, _I, _I, _U, _U, _P, _P]),
+    "threefry_uniforms": (_I, [_P, _I, _I, _L, _L, _U, _U, _P, _P]),
     # csrc/bounce.cu
     "k5_bounce": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _I, _P, _P,
                        _I, _I, _P]),

@@ -1,8 +1,8 @@
 // Shared device code of the whole-iteration kernels K1 (megakernel.cu) and
-// K5 (bounce.cu) and of K6 (prng.cu): the scene record's layout, float3
-// helpers, threefry2x32 and Philox4x32-10, the random streams, the
-// primitive intersection tests and one shading round of a path
-// (render/shade.py). Include after <cuda_runtime.h>,
+// K5 (bounce.cu) and of prng.cu's blocks (K6 and threefry): the scene
+// record's layout, float3 helpers, threefry2x32 and Philox4x32-10, the
+// random streams, the primitive intersection tests and one shading round of
+// a path (render/shade.py). Include after <cuda_runtime.h>,
 // <math_constants.h> and <stdint.h>; everything lies in an anonymous
 // namespace, so each kernel source gets its own copy.
 
@@ -119,17 +119,24 @@ struct Stream {
   }
 };
 
-// An iteration's words from the base key (b0, b1) and the iteration, as
-// ops/rng.py computes them on the host: its key fold_in(base, iteration)
-// and K6's seed randint(key) over [0, 2^31 - 1). randint reduces the first
-// draw under split(key) with the multiplier ((2^16 mod span)^2 mod 2^32)
-// mod span, which is 0 for this span, so the seed is the draw under the
-// second split key, element 0, mod the span.
-__device__ __forceinline__ void iteration_words(uint32_t b0, uint32_t b1, uint32_t iteration,
-                                                uint32_t& k0, uint32_t& k1, int32_t& seed) {
+// An iteration's key fold_in(base, iteration) from the base key (b0, b1),
+// as ops/rng.py::iteration_key computes it on the host.
+__device__ __forceinline__ void iteration_key(uint32_t b0, uint32_t b1, uint32_t iteration,
+                                              uint32_t& k0, uint32_t& k1) {
   k0 = 0u;
   k1 = iteration;
-  threefry2x32(b0, b1, k0, k1);  // fold_in(base, iteration)
+  threefry2x32(b0, b1, k0, k1);
+}
+
+// An iteration's words from the base key (b0, b1) and the iteration, as
+// ops/rng.py computes them on the host: its key (iteration_key) and K6's
+// seed randint(key) over [0, 2^31 - 1). randint reduces the first draw
+// under split(key) with the multiplier ((2^16 mod span)^2 mod 2^32) mod
+// span, which is 0 for this span, so the seed is the draw under the second
+// split key, element 0, mod the span.
+__device__ __forceinline__ void iteration_words(uint32_t b0, uint32_t b1, uint32_t iteration,
+                                                uint32_t& k0, uint32_t& k1, int32_t& seed) {
+  iteration_key(b0, b1, iteration, k0, k1);
   uint32_t s0 = 0u, s1 = 1u;
   threefry2x32(k0, k1, s0, s1);  // split(key)[1] = fold_in(key, 1)
   uint32_t x0 = 0u, x1 = 0u;

@@ -1,4 +1,6 @@
-// K6: a [k, n] block of uniforms in [0, 1) with 24-bit mantissas.
+// Two blocks of uniforms in [0, 1): K6's counter stream and threefry's.
+//
+// K6: a [k, n] block of uniforms with 24-bit mantissas.
 //
 // Replaces mygpuraytracer_tpu/ops/prng.py::_uniform_kernel, the Pallas
 // kernel that pallas_uniforms launches on the TPU. That kernel seeded the
@@ -28,8 +30,30 @@
 // ~15 integer instructions per float written, against 4 bytes per float:
 // at [28, 640000] ~0.016 ms of integer work against ~0.021 ms of bytes.
 //
-// Built by mygpuraytracer_tpu_torch/_build.py (nvcc, sm_90a); the C entry
-// point returns cudaGetLastError() after the launch.
+// threefry: columns col0 .. col0 + count - 1 of jax.random.uniform(key,
+// (k, n)) in float32, bit for bit (ops/rng.py::uniform_columns, its plain
+// version): element (r, c) is flat element r * n + col0 + c of the draw,
+// the bits y0 ^ y1 of threefry2x32(key, (index >> 32, index & 0xFFFFFFFF))
+// and the uniform bitcast((bits >> 9) | 0x3F800000) - 1 (path.cuh::Stream).
+// The wavefront draws its [4 + 3 * depth, N] block of each iteration so
+// (render/pathtrace.py), as the JAX package does with jax.random.uniform;
+// it replaces no TPU kernel: on CUDA it takes the place of ~350 int64 ATen
+// kernels an iteration (ops/rng.py's words in int64, torch lacking uint32).
+// The key comes by value or, in the build with WORDS, is derived in the
+// kernel as fold_in(base key, iteration), the iteration read from device
+// memory (the capture route).
+//
+// Design: one thread per column, looping over the k rows, so each row's
+// store covers 128 contiguous bytes across the warp. Bound on an H100:
+// instruction throughput. A draw is 20 rounds of add, funnel rotate and
+// xor, the key injections and the conversion, ~70 integer SASS
+// instructions, which nvcc spreads over the ALU and FMA pipes (adds as
+// IMAD), so one warp instruction per clock per SM sub-partition is the
+// floor: at [28, 640000] ~0.037 ms, against ~0.021 ms of bytes (4 per float
+// written).
+//
+// Built by mygpuraytracer_tpu_torch/_build.py (nvcc, sm_90a); each C entry
+// point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -71,6 +95,22 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// WORDS: the key is the iteration's, fold_in(base key, iteration)
+// (path.cuh::iteration_key), derived from the base key (key0, key1) and the
+// iteration read from device memory, *iteration_at (an int64), as for K6.
+template <bool WORDS>
+__global__ void __launch_bounds__(THREADS)
+    threefry_uniforms_kernel(float* __restrict__ out, int k, int count, uint64_t n, uint64_t col0,
+                             uint32_t key0, uint32_t key1,
+                             const long long* __restrict__ iteration_at) {
+  const int c = blockIdx.x * THREADS + threadIdx.x;
+  if (c >= count) return;
+  Stream s{key0, key1, n, col0 + c};
+  if (WORDS) iteration_key(key0, key1, static_cast<uint32_t>(*iteration_at), s.k0, s.k1);
+  float* o = out + c;
+  for (int r = 0; r < k; ++r) o[static_cast<int64_t>(r) * count] = s.uniform(r);
+}
+
 }  // namespace
 
 // iteration_at, if not null, replaces seed: the kernel derives the seed from
@@ -84,5 +124,24 @@ extern "C" int k6_uniforms(int seed, float* out, int k, int n, int col0, uint32_
   auto kernel = iteration_at != nullptr ? k6_kernel<true> : k6_kernel<false>;
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(seed, out, k, n, col0, key0,
                                                                   key1, iteration_at);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Columns col0 .. col0 + count - 1 of the threefry block [k, n] under the key
+// (key0, key1) into out ([k, count]); iteration_at, if not null, makes
+// (key0, key1) the base key: the kernel derives the iteration's key from it
+// and the iteration it reads from device memory.
+extern "C" int threefry_uniforms(float* out, int k, int count, long long n, long long col0,
+                                 uint32_t key0, uint32_t key1, const long long* iteration_at,
+                                 void* stream) {
+  if (k < 0 || count < 0 || col0 < 0 || col0 > n - count) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (k == 0 || count == 0) return 0;
+  const int blocks = (count + THREADS - 1) / THREADS;
+  auto kernel = iteration_at != nullptr ? threefry_uniforms_kernel<true>
+                                        : threefry_uniforms_kernel<false>;
+  kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(out, k, count, n, col0, key0,
+                                                                    key1, iteration_at);
   return static_cast<int>(cudaGetLastError());
 }

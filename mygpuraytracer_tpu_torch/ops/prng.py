@@ -31,6 +31,15 @@ from which the kernel (its ``WORDS`` build) derives the seed
 device memory. ``iteration_uniforms`` is the JAX package's dispatch between
 this stream and threefry (``ops/rng.py``); :func:`sample_uniforms` is that
 dispatch for an iteration that may be counted on the device.
+
+The threefry block, ``jax.random.uniform(key, (k, n))``, is one CUDA kernel
+launch for a CUDA device (:func:`threefry_uniforms`, ``csrc/prng.cu``), bit
+for bit ``ops/rng.py``'s plain threefry, which a CPU device runs. Its key
+is an iteration's, by value, or derived in the kernel from the base key and
+an iteration counted on the device. It replaces no TPU kernel: in int64
+ATen ops (torch lacks uint32) the block costs ~350 kernels an iteration.
+Its launches are counted in ``THREEFRY_LAUNCHES`` and on the device as
+``threefry``.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ _BLK = 2048  # columns per stream word (the TPU kernel's grid block)
 MIX = 0x9E3779B1  # golden-ratio odd multiplier of the seed
 
 LAUNCHES = 0  # kernel launches from the host since the last reset (a graph capture records one)
+THREEFRY_LAUNCHES = 0  # the same, of the threefry kernel
 
 
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers
@@ -102,21 +112,16 @@ def pallas_uniforms(seed, k: int, n: int, device="cuda", col0: int = 0) -> torch
     if device.type != "cuda":
         raise ValueError(f"K6 runs on CUDA or (plain) the CPU, not {device}")
     counted = isinstance(seed, tuple)
-    if counted:
-        base_key, iteration = seed
-        if not (isinstance(iteration, torch.Tensor) and iteration.dim() == 0
-                and iteration.dtype == torch.int64 and iteration.device.type == "cuda"):
-            raise ValueError(f"a counted iteration must be a 0-dim int64 CUDA tensor, got "
-                             f"{iteration!r}")
-    elif not -(2**31) <= int(seed) < 2**31:
+    if not counted and not -(2**31) <= int(seed) < 2**31:
         raise ValueError(f"need an int32 seed, got {seed}")
     if k < 0 or n < 0 or col0 < 0:
         raise ValueError(f"need k, n, col0 >= 0, got {k}, {n}, {col0}")
     out = torch.empty((k, n), dtype=torch.float32, device=device)
+    if counted:
+        base_key, iteration = seed
+        _check_counted(iteration, out.device)
     if out.numel() == 0:
         return out
-    if counted and iteration.device != out.device:
-        raise ValueError(f"the iteration lies on {iteration.device}, the block on {out.device}")
     words = (0, *base_key, iteration.data_ptr()) if counted else (int(seed), 0, 0, None)
     with _build.device_guard(out.device):
         err = _build.library().k6_uniforms(words[0], out.data_ptr(), k, n, int(col0), *words[1:],
@@ -125,6 +130,56 @@ def pallas_uniforms(seed, k: int, n: int, device="cuda", col0: int = 0) -> torch
         raise RuntimeError(f"K6 launch failed: CUDA error {err}")
     LAUNCHES += 1
     _build.count_on_device("k6", out.device)
+    return out
+
+
+def _check_counted(iteration, device: torch.device) -> None:
+    """Raise unless ``iteration`` is a 0-dim int64 tensor on ``device`` (a
+    CUDA device), as an iteration counted there is."""
+    if not (isinstance(iteration, torch.Tensor) and iteration.dim() == 0
+            and iteration.dtype == torch.int64 and iteration.device.type == "cuda"):
+        raise ValueError(f"a counted iteration must be a 0-dim int64 CUDA tensor, got "
+                         f"{iteration!r}")
+    if iteration.device != device:
+        raise ValueError(f"the iteration lies on {iteration.device}, the block on {device}")
+
+
+def threefry_uniforms(key, k: int, n: int, col0: int = 0, count: int | None = None,
+                      device="cuda") -> torch.Tensor:
+    """Columns ``col0 .. col0 + count - 1`` (all ``n`` by default) of
+    ``jax.random.uniform(key, (k, n))``, a [k, count] float32 block: one
+    launch of the threefry kernel on the current stream of a CUDA device,
+    bit for bit ``rng.uniform_columns``. ``key`` is a key of two int words,
+    or a pair (base key, iteration) with ``iteration`` a 0-dim int64 tensor
+    on ``device`` counted there: the key is then ``iteration_key(base key,
+    iteration)``, which the kernel derives, reading the iteration from
+    device memory, so a CUDA graph that records the launch bakes in no
+    iteration."""
+    global THREEFRY_LAUNCHES
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the threefry kernel runs on CUDA, not {device}")
+    count = n - col0 if count is None else count
+    if k < 0 or count < 0 or not 0 <= col0 <= n - count:
+        raise ValueError(f"need k, count >= 0 and columns {col0} .. {col0 + count - 1} "
+                         f"inside [0, {n}), got k = {k}")
+    counted = isinstance(key[0], tuple)
+    words = key[0] if counted else key
+    if not all(isinstance(w, int) and 0 <= w <= rng.MASK32 for w in words):
+        raise ValueError(f"need a key of two 32-bit int words, got {words!r}")
+    out = torch.empty((k, count), dtype=torch.float32, device=device)
+    if counted:
+        _check_counted(key[1], out.device)
+    if out.numel() == 0:
+        return out
+    iteration_at = key[1].data_ptr() if counted else None
+    with _build.device_guard(out.device):
+        err = _build.library().threefry_uniforms(out.data_ptr(), k, count, n, col0, *words,
+                                                 iteration_at, _build.stream_handle(out.device))
+    if err != 0:
+        raise RuntimeError(f"threefry kernel launch failed: CUDA error {err}")
+    THREEFRY_LAUNCHES += 1
+    _build.count_on_device("threefry", out.device)
     return out
 
 
@@ -142,14 +197,16 @@ def iteration_uniforms(options, ikey: rng.Key, iteration: int, k: int, n: int,
                        device="cuda", pixels: tuple[int, int] | None = None) -> torch.Tensor:
     """One iteration's [k, n] uniforms under the iteration key ``ikey``:
     K6 under the seed ``randint(ikey)`` where :func:`uniforms_mode` says
-    "pallas", else ``jax.random.uniform(ikey, (k, n))``. ``pixels`` =
-    (p0, count) gives only the columns p0 .. p0 + count - 1 of that block,
-    bit for bit ([k, count]). ``iteration`` is unused, as in the JAX
-    package."""
+    "pallas", else ``jax.random.uniform(ikey, (k, n))``, the threefry
+    kernel's for a CUDA device. ``pixels`` = (p0, count) gives only the
+    columns p0 .. p0 + count - 1 of that block, bit for bit ([k, count]).
+    ``iteration`` is unused, as in the JAX package."""
     del iteration
     p0, count = pixels if pixels is not None else (0, n)
     if uniforms_mode(options, device) == "pallas":
         return pallas_uniforms(rng.randint(ikey), k, count, device, col0=p0)
+    if torch.device(device).type == "cuda":
+        return threefry_uniforms(ikey, k, n, p0, count, device)
     if pixels is None:
         return rng.uniform(ikey, (k, n), device)
     return rng.uniform_columns(ikey, k, n, p0, count, device)
@@ -159,11 +216,14 @@ def sample_uniforms(options, base_key: rng.Key, iteration, k: int, n: int, devic
                     pixels: tuple[int, int] | None = None) -> torch.Tensor:
     """:func:`iteration_uniforms` under ``iteration_key(base_key,
     iteration)``, for an int ``iteration`` or one counted on the device (a
-    0-dim int64 tensor). The latter's key words are computed there, or,
-    under "pallas", not at all: K6 derives the seed from ``base_key`` and
-    the iteration it reads from device memory."""
-    if isinstance(iteration, torch.Tensor) and uniforms_mode(options, device) == "pallas":
+    0-dim int64 tensor). On a CUDA device the latter's key is not computed
+    here: K6 derives its seed, or the threefry kernel its key, from
+    ``base_key`` and the iteration it reads from device memory. On the CPU
+    its key words are tensors (``rng.iteration_key``)."""
+    if isinstance(iteration, torch.Tensor) and torch.device(device).type == "cuda":
         p0, count = pixels if pixels is not None else (0, n)
-        return pallas_uniforms((base_key, iteration), k, count, device, col0=p0)
+        if uniforms_mode(options, device) == "pallas":
+            return pallas_uniforms((base_key, iteration), k, count, device, col0=p0)
+        return threefry_uniforms((base_key, iteration), k, n, p0, count, device)
     return iteration_uniforms(options, rng.iteration_key(base_key, iteration), iteration, k, n,
                               device, pixels)

@@ -11,9 +11,9 @@ A graph records pointers and the values of every launch's arguments, so
 what it reads must stay where it was and change only on the device:
 
 - the iteration is a 0-dim int64 counter on the device; the graph reads it,
-  derives the iteration key and the uniforms from it (K6 and K5 read it
-  from device memory and derive their words themselves), and adds to it in
-  place;
+  derives the iteration key and the uniforms from it (K6, the threefry
+  block's kernel and K5 read it from device memory and derive their words
+  themselves), and adds to it in place;
 - it accumulates in place into the Renderer's persistent ``acc``,
   ``dir_acc`` and first-bounce cache, and reads the scene's tensors, the
   camera's (which ``Renderer.move_camera`` overwrites in place) and K5's

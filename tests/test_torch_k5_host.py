@@ -1,8 +1,8 @@
-"""K5's and K6's CUDA sources, compiled for the host, against their plain
-versions.
+"""K5's, K6's and the threefry block's CUDA sources, compiled for the host,
+against their plain versions.
 
 A CUDA kernel has no CPU mode. These tests compile csrc/bounce.cu (K5) and
-csrc/prng.cu (K6) with the host C++ compiler instead: a small header stands
+csrc/prng.cu (K6 and the threefry block) with the host C++ compiler instead: a small header stands
 in for the CUDA built-ins (the _rn intrinsics as plain IEEE operations,
 rsqrtf as 1/sqrtf, float4 loads), and a launch becomes a loop. K5's warp
 is 32 lanes, each on its own stack, that meet at each of its warp-wide
@@ -32,7 +32,10 @@ so the walk has to end on an empty stack there. The counters agree with
 the plain version's paths: the warps' live lanes over their bounce rounds
 are its ray-bounces, and every cluster visit lies below a visited node.
 K6 must equal its plain
-version bit for bit. The card itself is checked by chip_smoke.py and the
+version bit for bit, and so must the threefry block (``rng.uniform`` and
+``rng.uniform_columns``): at any shape and column range, past a flat index
+of 2^32, with its key by value or derived from a base key and an iteration
+read from memory. The card itself is checked by chip_smoke.py and the
 requires_cuda tests.
 """
 
@@ -269,8 +272,19 @@ def host_k5(tmp_path_factory):
     return lib
 
 
+# The threefry block's launch: every thread of every block in turn.
+THREEFRY_ARGS = "out, k, count, n, col0, key0, key1, iteration_at"
+THREEFRY_LAUNCH = ("kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(out, k, count, "
+                   "n, col0, key0,\n" + " " * 68 + "key1, iteration_at);")
+THREEFRY_LOOP = ("(void)stream; blockDim.x = THREADS; for (int b_ = 0; b_ < blocks; ++b_)"
+                 " for (int t_ = 0; t_ < THREADS; ++t_)"
+                 f" {{ blockIdx.x = b_; threadIdx.x = t_; kernel({THREEFRY_ARGS}); }}")
+
+
 @pytest.fixture(scope="module")
 def host_k6(tmp_path_factory):
+    """csrc/prng.cu for the host: K6 (``k6_uniforms``) and the threefry block
+    (``threefry_uniforms``)."""
     lib = _host_build(
         tmp_path_factory, "prng.cu",
         re.compile(r"kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>\(stream\)>>>\((.*?)\);",
@@ -278,8 +292,11 @@ def host_k6(tmp_path_factory):
         r"(void)stream; gridDim = grid; blockDim.x = THREADS;"
         r" for (unsigned y_ = 0; y_ < grid.y; ++y_) for (unsigned b_ = 0; b_ < grid.x; ++b_)"
         r" for (int t_ = 0; t_ < THREADS; ++t_)"
-        r" { blockIdx.x = b_; blockIdx.y = y_; threadIdx.x = t_; kernel(\1); }", "k6host")
-    lib.k6_uniforms.restype, lib.k6_uniforms.argtypes = _build.SIGNATURES["k6_uniforms"]
+        r" { blockIdx.x = b_; blockIdx.y = y_; threadIdx.x = t_; kernel(\1); }", "k6host",
+        replace=((THREEFRY_LAUNCH, THREEFRY_LOOP),))
+    for name in ("k6_uniforms", "threefry_uniforms"):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = _build.SIGNATURES[name]
     return lib
 
 
@@ -547,3 +564,104 @@ def test_host_k5_words_build_equals_by_value(mode, host_k5):
                              *key, 0, at.data_ptr(), w, *tail) != 0
     assert host_k5.k5_bounce(*args(acc_w, rays), None, None, n, 0, n, DEPTH, 2, counter,
                              *key, 0, at.data_ptr(), None, *tail) != 0
+
+
+def _host_threefry(lib, key, k, n, col0=0, count=None, iteration=None):
+    """The host build's threefry block [k, count] (NaN where it wrote
+    nothing): under ``key`` by value, or, given ``iteration``, under the key
+    it derives from the base key ``key`` and the int64 ``iteration`` read
+    from memory."""
+    count = n - col0 if count is None else count
+    out = torch.full((k, count), float("nan"))
+    at = None if iteration is None else torch.tensor([iteration], dtype=torch.int64)
+    assert lib.threefry_uniforms(out.data_ptr(), k, count, n, col0, *key,
+                                 None if at is None else at.data_ptr(), None) == 0
+    return out
+
+
+THREEFRY_SEEDS = [0, 1, -1, 2**31 - 1]
+
+
+@pytest.mark.parametrize("seed", THREEFRY_SEEDS)
+@pytest.mark.parametrize("k,n", [(1, 1), (4, 37), (28, 2049)])
+def test_host_threefry_matches_plain(seed, k, n, host_k6):
+    key = rng.make_key(seed)
+    assert torch.equal(_host_threefry(host_k6, key, k, n), rng.uniform(key, (k, n)))
+
+
+@pytest.mark.parametrize("k,n,col0,count", [
+    (7, 2049, 0, 100),       # the first columns
+    (7, 2049, 1, 300),       # from mid-block (ragged blocks of 256 threads)
+    (28, 5000, 2047, 2953),  # up to the last column
+    (3, 640000, 320000, 333),
+])
+def test_host_threefry_column_range(k, n, col0, count, host_k6):
+    """Columns col0 .. col0 + count - 1 of the [k, n] block (the pixel range
+    of a sharded render) equal those columns of the whole draw bit for bit."""
+    key = rng.iteration_key(rng.make_key(5), 3)
+    got = _host_threefry(host_k6, key, k, n, col0, count)
+    assert torch.equal(got, rng.uniform_columns(key, k, n, col0, count))
+    if n <= 5000:
+        assert torch.equal(got, rng.uniform(key, (k, n))[:, col0:col0 + count])
+
+
+@pytest.mark.parametrize("seed", THREEFRY_SEEDS)
+@pytest.mark.parametrize("k,n", [(4, 2**31 - 1), (3, 5 * 2**31 + 7)])
+def test_host_threefry_past_a_flat_index_of_2_32(seed, k, n, host_k6):
+    """A few columns of a block whose flat indices pass 2^32 (and, for the
+    second shape, whose row width passes 2^32): the index's high word is the
+    counter's first word."""
+    key = rng.make_key(seed)
+    col0, count = n - 40, 40
+    assert (k - 1) * n + col0 >= 2**32
+    got = _host_threefry(host_k6, key, k, n, col0, count)
+    assert torch.equal(got, rng.uniform_columns(key, k, n, col0, count))
+
+
+@pytest.mark.parametrize("seed", THREEFRY_SEEDS)
+def test_host_threefry_derives_its_key_from_memory(seed, host_k6):
+    """The WORDS build, the iteration read from an int64 in memory and the
+    key fold_in(base, iteration) derived from it, equals the by-value build
+    at ``iteration_key(base, iteration)`` and the plain draw under the key
+    that ``rng.iteration_key`` computes from a counted (tensor) iteration,
+    bit for bit, whole and over a column range."""
+    k, n = 28, 2048 + 333
+    base = rng.make_key(seed)
+    for it in (1, 2, 77, 2**31 - 1, 2**32 + 5):
+        ikey = rng.iteration_key(base, it)
+        counted = rng.iteration_key(base, torch.tensor(it, dtype=torch.int64))
+        for col0, count in ((0, n), (40, 1000)):
+            got = _host_threefry(host_k6, base, k, n, col0, count, iteration=it)
+            assert torch.equal(got, _host_threefry(host_k6, ikey, k, n, col0, count))
+            assert torch.equal(got, rng.uniform_columns(counted, k, n, col0, count))
+
+
+def test_host_threefry_refuses_columns_outside_the_block(host_k6):
+    out = torch.zeros(4)
+    for count, n, col0 in ((4, 10, 7), (4, 3, 0), (-1, 10, 0), (4, 10, -1)):
+        assert host_k6.threefry_uniforms(out.data_ptr(), 1, count, n, col0, 0, 1, None,
+                                         None) != 0
+    assert host_k6.threefry_uniforms(out.data_ptr(), 0, 4, 10, 0, 0, 1, None, None) == 0
+    assert torch.equal(out, torch.zeros(4))
+
+
+@pytest.mark.parametrize("counted", [False, True])
+@pytest.mark.parametrize("pixels", [None, (100, 333)])
+def test_threefry_dispatch_on_the_cpu_launches_nothing(counted, pixels):
+    """On CPU tensors the threefry branch of ``sample_uniforms`` and
+    ``iteration_uniforms`` runs ``ops/rng.py``'s plain draw: no launch on
+    the host, none counted on a device; the wrapper itself refuses the
+    CPU."""
+    options, base, n = RenderOptions(rng="threefry"), rng.make_key(9), 23 * 23
+    it = torch.tensor(4, dtype=torch.int64) if counted else 4
+    before = prng.THREEFRY_LAUNCHES
+    got = prng.sample_uniforms(options, base, it, 28, n, "cpu", pixels)
+    p0, count = pixels if pixels is not None else (0, n)
+    want = rng.uniform(rng.iteration_key(base, 4), (28, n))[:, p0:p0 + count]
+    assert torch.equal(got, want)
+    assert torch.equal(prng.iteration_uniforms(options, rng.iteration_key(base, 4), 4, 28, n,
+                                               "cpu", pixels), want)
+    assert prng.THREEFRY_LAUNCHES == before
+    assert _build.launches_on_device("threefry") == 0
+    with pytest.raises(ValueError):
+        prng.threefry_uniforms(rng.make_key(1), 4, 10, device="cpu")
