@@ -145,6 +145,9 @@ class Renderer:
         self._graph_buffers = None
         self._counter = torch.zeros((), dtype=torch.int64, device=self.device)
         self.acc = self.record = None
+        # render_denoised's U-Nets, built and cast once: (slot, dtype) -> (net, random init).
+        self._denoisers: dict[tuple[str, torch.dtype], tuple[torch.nn.Module, bool]] = {}
+        self.denoiser_builds = 0
         self.reset()
 
     def _graph_route(self) -> str | None:
@@ -314,17 +317,28 @@ class Renderer:
         """Render, then denoise on the device. Returns (denoised HxWx3,
         beauty HxWx3). A ``*_nrm`` slot adds the normal AOV as the third
         feature; an ``rt_hdr*`` slot switches to the HDR packing. The span
-        ``mygpurt.denoise`` covers the denoiser's load and enqueue, not the
-        copies to the host."""
-        from .denoise_fused import denoise_accumulator, load_denoiser
+        ``mygpurt.denoise`` covers the denoiser's lookup and enqueue, not the
+        copies to the host. The U-Net of each (slot, dtype) is built (span
+        ``mygpurt.denoise.build``) and cast (``.cast``) at its first frame
+        only, then kept for the Renderer's life; ``denoiser_builds`` counts
+        the builds."""
+        from . import denoise_fused
 
         self.render(iterations=iterations, batch=batch)
         with named_scope("mygpurt.denoise"):
-            net, self.denoiser_random_weights = load_denoiser(slot, self.device)
-            out = denoise_accumulator(
+            dtype = denoise_fused.net_dtype(self.device)
+            if (slot, dtype) not in self._denoisers:
+                net, random_init = denoise_fused.load_denoiser(slot, self.device)
+                if next(net.parameters()).dtype != dtype:
+                    with named_scope("mygpurt.denoise.cast"):
+                        net = net.to(dtype=dtype)
+                self._denoisers[slot, dtype] = (net, random_init)
+                self.denoiser_builds += 1
+            net, self.denoiser_random_weights = self._denoisers[slot, dtype]
+            out = denoise_fused.denoise_accumulator(
                 self.acc[0:3], self.acc[3:6], self.iteration, net, self.meta.resolution,
                 normal=self.acc[6:9] if slot.endswith("_nrm") else None,
-                hdr=slot.startswith("rt_hdr"),
+                hdr=slot.startswith("rt_hdr"), dtype=dtype,
             )
         return out.cpu().numpy(), self.beauty()
 

@@ -94,6 +94,16 @@ def test_render_denoised_opens_the_frame_spans(monkeypatch):
     ])
 
 
+def test_render_denoised_builds_and_casts_at_the_first_frame_only(monkeypatch):
+    """A second frame of the same Renderer reuses the kept net: the denoise
+    opens no build and no cast."""
+    r = _renderer()
+    monkeypatch.setattr(denoise_fused, "net_dtype", lambda device: torch.bfloat16)
+    r.render_denoised(iterations=2, batch=2)
+    spans = _spans(lambda: r.render_denoised(iterations=1, batch=1))
+    assert sorted(spans) == sorted([("mygpurt.step.eager", ()), ("mygpurt.denoise", ())])
+
+
 def test_step_many_opens_one_eager_span_per_batch():
     r = _renderer(8)
     spans = _spans(lambda: (r.step_many(2), r.step_many(1)))
